@@ -37,7 +37,8 @@ single-card mvtv's tie set, with its row-slab kernels B8s, B9s and B11s
 also held, on four row slabs of the 2048^2 state with real halos, against
 the whole-lattice kernels; and the two repaired routes, mvtv_one at
 16384 x 256 (no folded DCT halves) and at 16^4 (p = 4), each against the
-exact-f32 route.
+exact-f32 route.  Phase 3 also holds B6 at 511 x 2047 and B12 at
+258 x 130 x 136, shapes that leave remainders in their kernels' tiles.
 It shows through the launch counters that the paths ran every kernel,
 measures the device-memory ceiling with a streaming-copy probe, times each
 kernel beside its plain version and its bound, and prints:
@@ -287,6 +288,7 @@ CUBES = {
     "255x255x256 n=2^22": (lambda: cube_data(1 << 22), (255, 255, 256), 0.05),
     "128^3 n=2^21": (lambda: cube_data(1 << 21), (128, 128, 128), 0.05),
     "256x256x64 n=2^22": (lambda: cube_data(1 << 22), (256, 256, 64), 0.05),
+    "258x130x136 n=2^22": (lambda: cube_data(1 << 22), (258, 130, 136), 0.05),
 }
 # Phase 12's mvtv_one fits, those of them held against the exact-f32 route
 # there, and its lambda path's lattice: 2^22 knots, the tiled3 route in the
@@ -297,6 +299,12 @@ FITS3 = ("256^3 n=2^22", "255x255x256 n=2^22", "128^3 n=2^21")
 EXACT3 = ("128^3 n=2^21",)
 PATH3 = "256x256x64 n=2^22"
 TILED3 = ("dual_update_tiled_3d", "gram_residual_tiled_3d", "rhs_tiled_3d")
+# The lattices on which phase 3 holds B12 against its plain version: the
+# main path's 256^3, and one of 2^22 knots or more whose m1 and m2 are not
+# multiples of B12's 8 x 64 plane tile nor m0 of its 32-plane chunk (the
+# plane march's remainder tiles and wrap), each with the true_m masks of a
+# lattice one knot shorter on axes 0 and 1 (on 256^3: 255 x 255 x 256).
+DUAL3_CHECKS = {"256^3 n=2^22": (255, 255, 256), "258x130x136 n=2^22": (257, 129, 136)}
 # Phase 15: the sibling profiles' fits and the remaining 2-D x-update routes
 # on bench.py's data (n = 2^20, lambda = 0.05) and the mvtv data (316^2):
 # label -> (data, m, lambda, profile, SolverConfig overrides,
@@ -321,6 +329,12 @@ SLICE = {
     "316^2 python": (lambda: bivariate_exp(100_000), None, 300.0, "python", {}, None, None),
 }
 SLICE_PATH = "1023^2 cpp_standalone"
+# Phase 3 also holds B6 at an odd rectangle that is not a multiple of its
+# tensor-core product's 128 x 64 and 64 x 128 tiles: bench.py's data on
+# 511 x 2047 (below 2^20 knots: the whole route's dense x-update, as at
+# 1023^2), with the 1023^2 gates.  No fit runs there.
+SLICE_CHECKS = {"511x2047 cpp_standalone": (lambda: bench_data(1 << 20), (511, 2047), 0.05,
+                                            "cpp_standalone", {}, None, "dense")}
 # Objective gates of phase 15 against the exact-f32 route with the same
 # configs.  Boyd fits: one-sided, LARGE_GAP.  theta_inf is a loose stop that
 # leaves each route at its own point (at 316^2 under "python" the exact
@@ -758,62 +772,64 @@ def cube_inputs(name: str, device, warm_iters: int = 4) -> dict:
 
 
 def compare_tiled3(device, errs):
-    """B12 (both compiled flag pairs, and with a true_m mask), B13 (fused
-    and with b given) and B14 against their plain versions on warm 256^3
-    state of the tiled3 route; records the largest absolute error per
-    kernel in errs."""
+    """B12 (both compiled flag pairs, and with a true_m mask) on each
+    DUAL3_CHECKS lattice, B13 (fused and with b given) and B14 at 256^3,
+    against their plain versions on warm state of the tiled3 route; records
+    the largest absolute error per kernel in errs."""
     import torch
     from multivartv_tpu_torch.ops import kernels as K
     from multivartv_tpu_torch.solver import admm, xupdate
-
-    name = "256^3 n=2^22"
-    I = cube_inputs(name, device)
-    ops, pr, s = I["ops"], I["problem"], I["s"]
-    sc = ops.scales
-    tag = f"{name} [{'x'.join(map(str, I['m']))}, {xupdate.spectral_layout(ops)} layout]"
-    check(I["route"] == "tiled3", f"{tag}: the tiled3 route ({I['route']})")
 
     def note(kernel, got, ref):
         e = max(float((g.double() - r.double()).abs().max()) for g, r in zip(got, ref))
         errs[kernel] = max(errs.get(kernel, 0.0), e)
         return max(rel_err(g, r) for g, r in zip(got, ref))
 
-    kappa = I["lam"] / s.rho
-    for want_adj, want_alpha, tm in ((True, False, None), (False, True, None),
-                                     (True, False, (255, 255, 256))):
-        got = K.dual_update_tiled_3d(s.theta, s.u, kappa, sc, s.u_scale, tm, want_adj,
-                                     want_alpha)
-        ref = K.dual_update_tiled_3d_reference(s.theta, s.u, kappa, sc, s.u_scale, tm,
-                                               want_adj, want_alpha)
+    for name, tm_mask in DUAL3_CHECKS.items():
+        I = cube_inputs(name, device)
+        ops, pr, s = I["ops"], I["problem"], I["s"]
+        sc = ops.scales
+        tag = f"{name} [{'x'.join(map(str, I['m']))}, {xupdate.spectral_layout(ops)} layout]"
+        check(I["route"] == "tiled3", f"{tag}: the tiled3 route ({I['route']})")
+        kappa = I["lam"] / s.rho
+        for want_adj, want_alpha, tm in ((True, False, None), (False, True, None),
+                                         (True, False, tm_mask)):
+            got = K.dual_update_tiled_3d(s.theta, s.u, kappa, sc, s.u_scale, tm, want_adj,
+                                         want_alpha)
+            ref = K.dual_update_tiled_3d_reference(s.theta, s.u, kappa, sc, s.u_scale, tm,
+                                                   want_adj, want_alpha)
+            torch.cuda.synchronize()
+            lat = [(*(g[0] or ()), *g[1], *g[3:]) for g in (got, ref)]
+            e = note("dual_update_tiled_3d", *lat)
+            label = (f"dual_update_tiled_3d {tag} want_adjoints={want_adj} "
+                     f"want_alpha={want_alpha} true_m={tm}")
+            check(e <= 1e-5, f"{label}: alpha, u_new, dta, dtu max err {e:.3e} <= 1e-5 x "
+                  "max(1, |ref|)")
+            check(torch.allclose(got[2].double(), ref[2].double(), rtol=1e-4, atol=0),
+                  f"{label}: stats {got[2].tolist()} vs {ref[2].tolist()} (rtol 1e-4)")
+            del got, ref, lat
+        if name != "256^3 n=2^22":
+            del I, s
+            continue
+        parts = (pr.oty, s.dta, s.u_scale, s.dtu)
+        b = pr.oty + s.rho * (s.dta + s.u_scale * s.dtu)
+        for label, bb, rp in (("fused rhs", None, parts), ("b given", b, None)):
+            r = K.gram_residual_tiled_3d(bb, s.theta, pr.counts, s.rho, sc, rhs_parts=rp)
+            r_ref = K.gram_residual_tiled_3d_reference(bb, s.theta, pr.counts, s.rho, sc,
+                                                       rhs_parts=rp)
+            torch.cuda.synchronize()
+            e = note("gram_residual_tiled_3d", [r], [r_ref])
+            check(e <= 1e-5, f"gram_residual_tiled_3d {tag} ({label}): max err {e:.3e} <= "
+                  "1e-5 x max(1, |ref|)")
+        # B14 on the refreshed alpha of the warm state (the tiled3 loop leaves
+        # the state's own alpha at its pre-loop value).
+        alpha = admm._refresh_alpha(ops, s, I["lam"]).alpha
+        bk = K.rhs_tiled_3d(alpha, s.u, pr.oty, s.rho, s.u_scale, sc)
+        b_ref = K.rhs_tiled_3d_reference(alpha, s.u, pr.oty, s.rho, s.u_scale, sc)
         torch.cuda.synchronize()
-        lat = [(*(g[0] or ()), *g[1], *g[3:]) for g in (got, ref)]
-        e = note("dual_update_tiled_3d", *lat)
-        label = (f"dual_update_tiled_3d {tag} want_adjoints={want_adj} want_alpha={want_alpha}"
-                 f" true_m={tm}")
-        check(e <= 1e-5, f"{label}: alpha, u_new, dta, dtu max err {e:.3e} <= 1e-5 x max(1, "
-              "|ref|)")
-        check(torch.allclose(got[2].double(), ref[2].double(), rtol=1e-4, atol=0),
-              f"{label}: stats {got[2].tolist()} vs {ref[2].tolist()} (rtol 1e-4)")
-        del got, ref, lat
-    parts = (pr.oty, s.dta, s.u_scale, s.dtu)
-    b = pr.oty + s.rho * (s.dta + s.u_scale * s.dtu)
-    for label, bb, rp in (("fused rhs", None, parts), ("b given", b, None)):
-        r = K.gram_residual_tiled_3d(bb, s.theta, pr.counts, s.rho, sc, rhs_parts=rp)
-        r_ref = K.gram_residual_tiled_3d_reference(bb, s.theta, pr.counts, s.rho, sc,
-                                                   rhs_parts=rp)
-        torch.cuda.synchronize()
-        e = note("gram_residual_tiled_3d", [r], [r_ref])
-        check(e <= 1e-5, f"gram_residual_tiled_3d {tag} ({label}): max err {e:.3e} <= 1e-5 x "
-              "max(1, |ref|)")
-    # B14 on the refreshed alpha of the warm state (the tiled3 loop leaves
-    # the state's own alpha at its pre-loop value).
-    alpha = admm._refresh_alpha(ops, s, I["lam"]).alpha
-    bk = K.rhs_tiled_3d(alpha, s.u, pr.oty, s.rho, s.u_scale, sc)
-    b_ref = K.rhs_tiled_3d_reference(alpha, s.u, pr.oty, s.rho, s.u_scale, sc)
-    torch.cuda.synchronize()
-    e = note("rhs_tiled_3d", [bk], [b_ref])
-    check(e <= 1e-5, f"rhs_tiled_3d {tag}: max err {e:.3e} <= 1e-5 x max(1, |ref|)")
-    del I, s, b, bk, b_ref, alpha
+        e = note("rhs_tiled_3d", [bk], [b_ref])
+        check(e <= 1e-5, f"rhs_tiled_3d {tag}: max err {e:.3e} <= 1e-5 x max(1, |ref|)")
+        del I, s, b, bk, b_ref, alpha
     torch.cuda.empty_cache()
 
 
@@ -828,7 +844,7 @@ def slice_inputs(label: str, device, warm_iters: int = 4) -> dict:
     from multivartv_tpu_torch.config import sibling_profile
     from multivartv_tpu_torch.solver import admm
 
-    make, m, lam, prof, over, _, _ = SLICE[label]
+    make, m, lam, prof, over, _, _ = {**SLICE, **SLICE_CHECKS}[label]
     x, y = make()
     scfg, pcfg, mcfg = sibling_profile(prof)
     scfg = dataclasses.replace(scfg, **over)
@@ -845,9 +861,10 @@ def slice_inputs(label: str, device, warm_iters: int = 4) -> dict:
 
 
 def compare_slice(device, errs):
-    """B6 (from the warm state and from x0 = 0), B1 and B2 at 1023^2 and B7
-    at 1023^2 and 1024^2 against their plain versions on the slice's path
-    inputs; records the largest absolute error per kernel in errs."""
+    """B6 (from the warm state and from x0 = 0), B1 and B2 at 1023^2 and
+    511 x 2047 and B7 there and at 1024^2 against their plain versions on
+    the slice's path inputs; records the largest absolute error per kernel
+    in errs."""
     import torch
     from multivartv_tpu_torch.ops import kernels as K
 
@@ -855,7 +872,7 @@ def compare_slice(device, errs):
         e = max(float((g.double() - r.double()).abs().max()) for g, r in zip(got, ref))
         errs[kernel] = max(errs.get(kernel, 0.0), e)
 
-    for label in ("1023^2 cpp_standalone", "1024^2 B7 f32 precond"):
+    for label in ("1023^2 cpp_standalone", *SLICE_CHECKS, "1024^2 B7 f32 precond"):
         I = slice_inputs(label, device)
         ops, pr, s, cbar = I["ops"], I["problem"], I["s"], I["cbar"]
         sc, tag = ops.scales, f"{label} [{I['m'][0]}x{I['m'][1]}]"
@@ -1740,17 +1757,43 @@ def phase_slice(device):
     return launches
 
 
+def dense_products_cublas(ops, b):
+    """B6's 12 dense DCT products (three forward-inverse pairs) as bf16
+    torch.matmul calls (cuBLAS) of the same shapes: a yardstick for the
+    tensor-core product, never a path."""
+    import torch
+    t0, t1 = ops.dct_mats_lp
+    v = b.to(torch.bfloat16)
+    for _ in range(3):
+        z = t0 @ v
+        z = z @ t1.T
+        z = t0.T @ z
+        z = z @ t1
+    return z
+
+
+def kernel_share(run, match) -> tuple:
+    """torch.profiler over run(): (device ms of the kernels whose name
+    matches, device ms of all kernels); (0, 0) when the profiler saw no
+    device time."""
+    times = device_times(run)
+    return (sum(us for us, _, key in times if match(key)) / 1e3,
+            sum(us for us, _, _ in times) / 1e3)
+
+
 def phase_timing_slice(device):
-    """Phase 7's part for the slice: B6 at 1023^2 and B7 at 1024^2 beside
-    their plain versions and bounds, and the 1023^2 whole-route iteration
-    (B2, B6, B1) under the standalone C++ sibling's profile with its
-    profile.  Returns {kernel: (ms, plain_ms, m)}."""
+    """Phase 7's part for the slice: B6 at 1023^2 and 511 x 2047 and B7 at
+    1024^2 beside their plain versions and bounds, B6's dense products
+    beside the same 12 products on cuBLAS and their share of B6's device
+    time (torch.profiler), and the 1023^2 whole-route iteration (B2, B6,
+    B1) under the standalone C++ sibling's profile with its profile.
+    Returns {kernel: (ms, plain_ms, m)} at 1023^2 (B6) and 1024^2 (B7)."""
     import torch
     from multivartv_tpu_torch.ops import kernels as K
     from multivartv_tpu_torch.solver import admm
 
     times = {}
-    for label in ("1023^2 cpp_standalone", "1024^2 B7 f32 precond"):
+    for label in (SLICE_PATH, *SLICE_CHECKS, "1024^2 B7 f32 precond"):
         I = slice_inputs(label, device)
         ops, pr, s, cbar, m = I["ops"], I["problem"], I["s"], I["cbar"], I["m"]
         sc = ops.scales
@@ -1768,10 +1811,25 @@ def phase_timing_slice(device):
         p1, k1, k2, p2 = (cuda_time_ms(plain, reps), cuda_time_ms(kern, reps),
                           cuda_time_ms(kern, reps), cuda_time_ms(plain, reps))
         b_ms, b_by = bound(name, m)
-        times[name] = (min(k1, k2), min(p1, p2), m)
+        if label not in SLICE_CHECKS:
+            times[name] = (min(k1, k2), min(p1, p2), m)
         log(f"  {name} {label}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}) [{GPU_LINE}]")
-        if m[0] % 2:
+        if name == "xupdate_pcg_2d":
+            n_calls = 5
+            lib_ms = cuda_time_ms(lambda: dense_products_cublas(ops, b), 20)
+            prod, busy = kernel_share(lambda: [kern() for _ in range(n_calls)],
+                                      lambda key: "dense_mma_kernel" in key)
+            if busy > 0:
+                log(f"  xupdate_pcg_2d {label}: its 12 tensor-core DCT products "
+                    f"{prod / n_calls:.4f} ms per call, {prod / busy:.3f} of its device time "
+                    f"({busy / n_calls:.4f} ms per call, torch.profiler); the same 12 products "
+                    f"as bf16 torch.matmul (cuBLAS, a yardstick) {lib_ms:.4f} ms: "
+                    f"{prod / n_calls / lib_ms:.2f}x [{GPU_LINE}]")
+            else:
+                log(f"  xupdate_pcg_2d {label}: the profiler saw no device time; the 12 products "
+                    f"as bf16 torch.matmul (cuBLAS, a yardstick) {lib_ms:.4f} ms [{GPU_LINE}]")
+        if label == SLICE_PATH:
             n_it = 10
             cfg, state0, lam = I["cfg"], I["state0"], I["lam"]
 
@@ -1789,9 +1847,8 @@ def phase_timing_slice(device):
 
 def phase_timing_cubes(device):
     """Phase 13: B12, B13 and B14 at 256^3 beside their plain versions and
-    bounds, and the tiled3 iteration's time and profile (PR 4 also timed
-    them at 128^3; PERF.md keeps those rows).  Returns {kernel: (ms,
-    plain_ms, m)} at 256^3."""
+    bounds, the tiled3 iteration's time and profile, and B12 at 128^3.
+    Returns {kernel: (ms, plain_ms, m)} at 256^3."""
     import torch
     from multivartv_tpu_torch.ops import kernels as K
     from multivartv_tpu_torch.solver import admm, xupdate
@@ -1843,6 +1900,22 @@ def phase_timing_cubes(device):
         profile_iterations(name, run, n_it, ms)
         del I, s, state0, cases, alpha
         torch.cuda.empty_cache()
+    # B12 alone at 128^3, on the warm state of that lattice's route (the
+    # no-kernel spectral3 route: below 2^22 knots no path launches B12).
+    name = "128^3 n=2^21"
+    I = cube_inputs(name, device)
+    s, sc, m = I["s"], I["ops"].scales, I["m"]
+    kappa = I["lam"] / s.rho
+    args = (s.theta, s.u, kappa, sc, s.u_scale, None, True, False)
+    p1, k1, k2, p2 = (cuda_time_ms(lambda: K.dual_update_tiled_3d_reference(*args), 5),
+                      cuda_time_ms(lambda: K.dual_update_tiled_3d(*args), 20),
+                      cuda_time_ms(lambda: K.dual_update_tiled_3d(*args), 20),
+                      cuda_time_ms(lambda: K.dual_update_tiled_3d_reference(*args), 5))
+    b_ms, b_by = bound("dual_update_tiled_3d", m)
+    log(f"  dual_update_tiled_3d {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+        f"{p2:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{GPU_LINE}]")
+    del I, s, args
+    torch.cuda.empty_cache()
     return times
 
 
@@ -2127,7 +2200,8 @@ def copy_ceiling(device) -> float:
                    cuda_time_ms(lambda: K.stream_copy(src, dst), 20, warmup=3))
     rate = nbytes / (min(k1, k2) / 1e3)
     log(f"  stream_copy probe, 512 MB: {k1:.4f} / {k2:.4f} ms = {rate / 1e9:.1f} GB/s read + "
-        f"written; torch copy_ {lib:.4f} ms = {nbytes / lib / 1e6:.1f} GB/s; published peak "
+        f"written; torch copy_ {lib:.4f} ms = {nbytes / lib / 1e6:.1f} GB/s; bytes bound "
+        f"{nbytes / PEAK_HBM_BYTES * 1e3:.4f} ms at the published peak "
         f"{PEAK_HBM_BYTES / 1e9:.0f} GB/s (the bytes bound's denominator) [{GPU_LINE}]")
     del src, dst
     torch.cuda.empty_cache()
@@ -2136,12 +2210,16 @@ def copy_ceiling(device) -> float:
 
 def _profile_group(key: str) -> str:
     k = key.lower()
-    if "dual3_kernel" in k:
+    if "dual3_march_kernel" in k:
         return "B12 dual_update_tiled_3d"
     if "gram3_kernel" in k:
         return "B13 gram_residual_tiled_3d"
     if "dual_gemm_kernel" in k:
-        return "B3/B6 DCT products (dct_gemm.cu)"
+        return "B3-B5 DCT products (dct_gemm.cu)"
+    if "dense_mma_kernel" in k:
+        return "B6 DCT products (dct_mma.cu)"
+    if "pad_bf16_kernel" in k:
+        return "B6 bf16 operand staging (dct_mma.cu)"
     # Before "dual_kernel": B2's residual_kernel contains that name.
     if any(t in k for t in ("residual_kernel", "gram_matvec_dot", "cg_update", "spectral_scale")):
         return "B2 and the B3/B6 CG stages"
@@ -2164,10 +2242,8 @@ def _profile_group(key: str) -> str:
     return "eager elementwise and reduction passes"
 
 
-def profile_iterations(label: str, run, n_iters: int, wall_ms: float) -> None:
-    """torch.profiler over run() (n_iters ADMM iterations): device time per
-    iteration by kernel group, and the device's idle share against the
-    CUDA-event wall time per iteration (wall_ms)."""
+def device_times(run) -> list:
+    """torch.profiler over run(): (device us, calls, name) per kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2175,15 +2251,21 @@ def profile_iterations(label: str, run, n_iters: int, wall_ms: float) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
+    return [(float(getattr(e, "self_device_time_total", None)
+                   or getattr(e, "self_cuda_time_total", 0.0) or 0.0), e.count, e.key)
+            for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+
+def profile_iterations(label: str, run, n_iters: int, wall_ms: float) -> None:
+    """torch.profiler over run() (n_iters ADMM iterations): device time per
+    iteration by kernel group, and the device's idle share against the
+    CUDA-event wall time per iteration (wall_ms)."""
     groups, top = {}, []
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        us = float(getattr(e, "self_device_time_total", None)
-                   or getattr(e, "self_cuda_time_total", 0.0) or 0.0)
-        g = _profile_group(e.key)
+    for us, count, key in device_times(run):
+        g = _profile_group(key)
         groups[g] = groups.get(g, 0.0) + us
-        top.append((us, e.count, e.key[:90]))
+        top.append((us, count, key[:90]))
     busy = sum(groups.values()) / 1e3 / n_iters
     if busy <= 0:
         log(f"  {label}: the profiler saw no device time (CUDA-event wall {wall_ms:.3f} ms per "
@@ -2452,7 +2534,8 @@ def probe_dual_struct(device, errs, timed, n: int = 4096):
     dst = torch.empty_like(ins[0])
     copy_ms = cuda_time_ms(lambda: K.stream_copy(ins[0], dst), 20, warmup=3)
     log(f"  stream_copy 4096^2 (64 MB): {copy_ms:.4f} ms = "
-        f"{2 * n * n * 4 / copy_ms / 1e6:.1f} GB/s [{GPU_LINE}]")
+        f"{2 * n * n * 4 / copy_ms / 1e6:.1f} GB/s, bytes bound "
+        f"{2 * n * n * 4 / PEAK_HBM_BYTES * 1e3:.4f} ms [{GPU_LINE}]")
     for prox, n_out in ((False, 8), (True, 5)):
         outs, st = K.dual_struct(ins, n_out, prox)
         ref, rst = K.dual_struct_reference(ins, n_out, prox)

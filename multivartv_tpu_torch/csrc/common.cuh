@@ -192,12 +192,20 @@ struct PcgBuffers {
 struct Halves {
   const __nv_bfloat16 *te0, *to0, *te1, *to1;
 };
+// B6's operands on the tensor cores, each bf16 row zero-padded to a
+// multiple of 8 elements (16 bytes, for cp.async) and each buffer 16-byte
+// aligned: the dense DCT matrices T0 (m0 x ld0) and T1 (m1 x ld1), and
+// scratch for a transform's input x and its first product tb (m0 x ld1).
+struct Dense {
+  __nv_bfloat16 *t0, *t1, *x, *tb;
+  int ld0, ld1;
+};
 // The preconditioner's transforms: the folded halves (B3, B4, B5; even
-// axes, the spectrum in packed order) or, with t0 set, the dense bf16 DCT
-// matrices T0 (m0 x m0) and T1 (m1 x m1) of B6 (any axes, natural order).
+// axes, the spectrum in packed order) or, with dn.t0 set, B6's dense
+// matrices (any axes, natural order).
 struct Transforms {
   Halves hv;
-  const __nv_bfloat16 *t0, *t1;
+  Dense dn;
 };
 int run_pcg(const float* x_src, float* x_dst, const float* counts, Transforms tf,
             const float* eigs, float* scal, Scales sc, int n_steps, PcgBuffers wb,
@@ -210,13 +218,18 @@ int launch_dct2_packed(const float* v, Halves hv, float* tmp, float* out, Lat L,
                        cudaStream_t s);
 int launch_idct2_packed(const float* y, Halves hv, float* tmp, float* out, const float* scal,
                         int rz_new, int rz_old, Lat L, Batch bt, cudaStream_t s);
-// dct_gemm.cu: the dense 2-D DCT-II T0 v T1' and its inverse T0' y T1, with
-// the same epilogue as the folded inverse.
-int launch_dct2_dense(const float* v, const __nv_bfloat16* t0, const __nv_bfloat16* t1,
-                      float* tmp, float* out, Lat L, Batch bt, cudaStream_t s);
-int launch_idct2_dense(const float* y, const __nv_bfloat16* t0, const __nv_bfloat16* t1,
-                       float* tmp, float* out, const float* scal, int rz_new, int rz_old, Lat L,
-                       Batch bt, cudaStream_t s);
+// dct_mma.cu: the dense 2-D DCT-II T0 v T1' and its inverse T0' y T1 on the
+// tensor cores, with the same epilogue as the folded inverse (one problem:
+// any other bt returns cudaErrorInvalidValue); dense_layout places Dense's
+// buffers in the scratch at extra (dense_scratch_bytes(L) bytes) and
+// launch_dense_mats fills its padded T0 and T1 from the unpadded ones.
+int dense_scratch_bytes(Lat L);
+Dense dense_layout(void* extra, Lat L);
+int launch_dense_mats(const __nv_bfloat16* t0, const __nv_bfloat16* t1, Dense dn, Lat L,
+                      cudaStream_t s);
+int launch_dct2_dense(const float* v, Dense dn, float* out, Lat L, Batch bt, cudaStream_t s);
+int launch_idct2_dense(const float* y, Dense dn, float* out, const float* scal, int rz_new,
+                       int rz_old, Lat L, Batch bt, cudaStream_t s);
 
 }  // namespace mvtv
 

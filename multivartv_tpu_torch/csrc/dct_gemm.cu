@@ -16,19 +16,14 @@
 //
 // Bound on the H100: arithmetic.  One transform of an m x m lattice is 4
 // products of m/2 x m x m/2 with two accumulators: m^3 multiply-adds, 0.27
-// GFLOP at 512^2, and the x-update runs six per iteration.  This first
-// version is a shared-memory SIMT GEMM (float32 FMA on bf16-rounded values,
-// 32 x 32 tiles, 2 x 2 outputs per thread and accumulator): simple and
-// right, far from the tensor cores.  The folds and flips ride in the tile
-// loaders and the +/- recombination in the epilogue, so no folded operand
-// is stored.  The tensor-core (wgmma) version is later work.
-//
-// The same GEMM with one accumulator serves the dense (unfolded) transforms
-// of B6 (pallas_kernels.py:_xupdate_kernel, dct2/idct2 at :354-370), which
-// run where an axis is odd and no folded halves exist: T0 bf16(v), then
-// bf16(that) T1' forward, and T0' bf16(y), then bf16(that) T1 inverse; the
-// transposes are index swaps in the loaders.  Twice the multiply-adds of the
-// folded transform: 2 m0 m1 (m0 + m1) per forward-inverse pair.
+// GFLOP at 512^2, and the x-update runs six per iteration.  This is a
+// shared-memory SIMT GEMM (float32 FMA on bf16-rounded values, 32 x 32
+// tiles, 2 x 2 outputs per thread and accumulator): simple and right, far
+// from the tensor cores.  The folds and flips ride in the tile loaders and
+// the +/- recombination in the epilogue, so no folded operand is stored.
+// B6's dense (unfolded) transforms run on the tensor cores (dct_mma.cu);
+// moving these folded ones onto that product, and then onto wgmma, is the
+// next step for B3-B5.
 #include "common.cuh"
 
 namespace mvtv {
@@ -40,18 +35,17 @@ __device__ __forceinline__ float bf(const __nv_bfloat16* p, size_t i) {
   return __bfloat162float(p[i]);
 }
 
-// Each product op computes C1 = A1 B1 and C2 = A2 B2 over one (i, n) tile
-// (kDual; without it C1 alone): load_a(i, k) gives (A1, A2)[i, k], load_b(k,
-// n) gives (B1, B2)[k, n], store(i, n, c1, c2) writes the output.  A_K_FAST
-// / B_K_FAST say which index is contiguous in memory, to pick coalesced
-// tile loads.  at(off, soff) is the op of the batch's problem whose
-// lattices start at off and whose scalar row starts at soff; the DCT
-// matrices are shared.
+// Each product op computes C1 = A1 B1 and C2 = A2 B2 over one (i, n) tile:
+// load_a(i, k) gives (A1, A2)[i, k], load_b(k, n) gives (B1, B2)[k, n],
+// store(i, n, c1, c2) writes the output.  A_K_FAST / B_K_FAST say which
+// index is contiguous in memory, to pick coalesced tile loads.  at(off,
+// soff) is the op of the batch's problem whose lattices start at off and
+// whose scalar row starts at soff; the DCT matrices are shared.
 
 // tmp[f, n] = (Te0 @ S0)[f, n], tmp[h0 + f, n] = (To0 @ D0)[f, n];
 // S0/D0 = bf16(v[k] +/- v[m0-1-k]).
 struct FwdAxis0 {
-  static constexpr bool A_K_FAST = true, B_K_FAST = false, kDual = true;
+  static constexpr bool A_K_FAST = true, B_K_FAST = false;
   const float* v;
   const __nv_bfloat16 *te, *to;
   float* out;
@@ -80,7 +74,7 @@ struct FwdAxis0 {
 // out[i, f] = (S1 @ Te1^T)[i, f], out[i, h1 + f] = (D1 @ To1^T)[i, f];
 // S1/D1 = bf16(tmp[:, k] +/- tmp[:, m1-1-k]).
 struct FwdAxis1 {
-  static constexpr bool A_K_FAST = true, B_K_FAST = true, kDual = true;
+  static constexpr bool A_K_FAST = true, B_K_FAST = true;
   const float* tmp;
   const __nv_bfloat16 *te, *to;
   float* out;
@@ -109,7 +103,7 @@ struct FwdAxis1 {
 // a = Te0^T bf16(y[:h0]), b = To0^T bf16(y[h0:]);
 // x[i] = a[i] + b[i], x[m0-1-i] = a[i] - b[i].
 struct InvAxis0 {
-  static constexpr bool A_K_FAST = false, B_K_FAST = false, kDual = true;
+  static constexpr bool A_K_FAST = false, B_K_FAST = false;
   const float* y;
   const __nv_bfloat16 *te, *to;
   float* out;
@@ -137,7 +131,7 @@ struct InvAxis0 {
 // aa = bf16(x[:, :h1]) Te1, bb = bf16(x[:, h1:]) To1;
 // out[:, n] = aa + bb, out[:, m1-1-n] = aa - bb, optionally + beta * out.
 struct InvAxis1 {
-  static constexpr bool A_K_FAST = true, B_K_FAST = false, kDual = true;
+  static constexpr bool A_K_FAST = true, B_K_FAST = false;
   const float* x;
   const __nv_bfloat16 *te, *to;
   float* out;
@@ -171,113 +165,13 @@ struct InvAxis1 {
   }
 };
 
-// The dense transforms (one product each).  tmp = T0 @ bf16(v).
-struct DenseFwd0 {
-  static constexpr bool A_K_FAST = true, B_K_FAST = false, kDual = false;
-  const float* v;
-  const __nv_bfloat16* t0;
-  float* out;
-  int m0, m1;
-  __device__ DenseFwd0 at(size_t off, size_t) const {
-    DenseFwd0 o = *this;
-    o.v += off;
-    o.out += off;
-    return o;
-  }
-  __device__ void load_a(int i, int k, float& a1, float&) const {
-    a1 = bf(t0, size_t(i) * m0 + k);
-  }
-  __device__ void load_b(int k, int n, float& b1, float&) const {
-    b1 = bf16_round(v[size_t(k) * m1 + n]);
-  }
-  __device__ void store(int i, int n, float c1, float) const { out[size_t(i) * m1 + n] = c1; }
-};
-
-// out = bf16(tmp) @ T1^T.
-struct DenseFwd1 {
-  static constexpr bool A_K_FAST = true, B_K_FAST = true, kDual = false;
-  const float* tmp;
-  const __nv_bfloat16* t1;
-  float* out;
-  int m1;
-  __device__ DenseFwd1 at(size_t off, size_t) const {
-    DenseFwd1 o = *this;
-    o.tmp += off;
-    o.out += off;
-    return o;
-  }
-  __device__ void load_a(int i, int k, float& a1, float&) const {
-    a1 = bf16_round(tmp[size_t(i) * m1 + k]);
-  }
-  __device__ void load_b(int k, int n, float& b1, float&) const {
-    b1 = bf(t1, size_t(n) * m1 + k);
-  }
-  __device__ void store(int i, int n, float c1, float) const { out[size_t(i) * m1 + n] = c1; }
-};
-
-// tmp = T0^T @ bf16(y).
-struct DenseInv0 {
-  static constexpr bool A_K_FAST = false, B_K_FAST = false, kDual = false;
-  const float* y;
-  const __nv_bfloat16* t0;
-  float* out;
-  int m0, m1;
-  __device__ DenseInv0 at(size_t off, size_t) const {
-    DenseInv0 o = *this;
-    o.y += off;
-    o.out += off;
-    return o;
-  }
-  __device__ void load_a(int i, int k, float& a1, float&) const {
-    a1 = bf(t0, size_t(k) * m0 + i);
-  }
-  __device__ void load_b(int k, int n, float& b1, float&) const {
-    b1 = bf16_round(y[size_t(k) * m1 + n]);
-  }
-  __device__ void store(int i, int n, float c1, float) const { out[size_t(i) * m1 + n] = c1; }
-};
-
-// out = bf16(tmp) @ T1, optionally + beta * out (InvAxis1's epilogue).
-struct DenseInv1 {
-  static constexpr bool A_K_FAST = true, B_K_FAST = false, kDual = false;
-  const float* tmp;
-  const __nv_bfloat16* t1;
-  float* out;
-  const float* scal;
-  int m1, rz_new, rz_old;
-  __device__ DenseInv1 at(size_t off, size_t soff) const {
-    DenseInv1 o = *this;
-    o.tmp += off;
-    o.out += off;
-    o.scal += soff;
-    return o;
-  }
-  __device__ void load_a(int i, int k, float& a1, float&) const {
-    a1 = bf16_round(tmp[size_t(i) * m1 + k]);
-  }
-  __device__ void load_b(int k, int n, float& b1, float&) const {
-    b1 = bf(t1, size_t(k) * m1 + n);
-  }
-  __device__ void store(int i, int n, float c1, float) const {
-    const size_t c = size_t(i) * m1 + n;
-    if (rz_new < 0) {
-      out[c] = c1;
-    } else {
-      const float beta = scal[rz_new] / nan_max(scal[rz_old], kEps);
-      out[c] = c1 + beta * out[c];
-    }
-  }
-};
-
 // kBatched = false is the single-problem launch (B = 1, no activity mask):
 // the batch offsets compile away.  With them the GEMM used up to 21 more
 // registers and B3/B4 ran 5 % slower at 512^2 on the H100 (PERF.md).
 template <class Op, bool kBatched>
 __global__ void __launch_bounds__(kGemmThreads)
 dual_gemm_kernel(Op op_b0, int M, int N, int K, Batch bt, size_t lat) {
-  // The second operand pair only where the op has one (kDual).
-  constexpr int K2 = Op::kDual ? BK : 1;
-  __shared__ float As1[BK][BM], As2[K2][BM], Bs1[BK][BN], Bs2[K2][BN];
+  __shared__ float As1[BK][BM], As2[BK][BM], Bs1[BK][BN], Bs2[BK][BN];
   if (kBatched && frozen(bt)) return;
   const Op op = kBatched ? op_b0.at(size_t(blockIdx.z) * lat, scal_offset(bt)) : op_b0;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -292,7 +186,7 @@ dual_gemm_kernel(Op op_b0, int M, int N, int K, Batch bt, size_t lat) {
       float a1 = 0.f, a2 = 0.f;
       if (row0 + ii < M && k0 + kk < K) op.load_a(row0 + ii, k0 + kk, a1, a2);
       As1[kk][ii] = a1;
-      if constexpr (Op::kDual) As2[kk][ii] = a2;
+      As2[kk][ii] = a2;
     }
 #pragma unroll
     for (int q = 0; q < (BK * BN) / kGemmThreads; ++q) {
@@ -302,29 +196,22 @@ dual_gemm_kernel(Op op_b0, int M, int N, int K, Batch bt, size_t lat) {
       float b1 = 0.f, b2 = 0.f;
       if (k0 + kk < K && col0 + nn < N) op.load_b(k0 + kk, col0 + nn, b1, b2);
       Bs1[kk][nn] = b1;
-      if constexpr (Op::kDual) Bs2[kk][nn] = b2;
+      Bs2[kk][nn] = b2;
     }
     __syncthreads();
 #pragma unroll 8
     for (int kk = 0; kk < BK; ++kk) {
       const float a1[2] = {As1[kk][ty], As1[kk][ty + 16]};
       const float b1[2] = {Bs1[kk][tx], Bs1[kk][tx + 16]};
-      if constexpr (Op::kDual) {
-        const float a2[2] = {As2[kk][ty], As2[kk][ty + 16]};
-        const float b2[2] = {Bs2[kk][tx], Bs2[kk][tx + 16]};
+      const float a2[2] = {As2[kk][ty], As2[kk][ty + 16]};
+      const float b2[2] = {Bs2[kk][tx], Bs2[kk][tx + 16]};
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
+      for (int r = 0; r < 2; ++r)
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            acc1[r][c] += a1[r] * b1[c];
-            acc2[r][c] += a2[r] * b2[c];
-          }
-      } else {
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) acc1[r][c] += a1[r] * b1[c];
-      }
+        for (int c = 0; c < 2; ++c) {
+          acc1[r][c] += a1[r] * b1[c];
+          acc2[r][c] += a2[r] * b2[c];
+        }
     }
     __syncthreads();
   }
@@ -365,22 +252,6 @@ int launch_idct2_packed(const float* y, Halves hv, float* tmp, float* out, const
                          s));
   MVTV_CHECK(launch_gemm(InvAxis1{tmp, hv.te1, hv.to1, out, scal, L.m1, h1, rz_new, rz_old},
                          L.m0, h1, h1, L, bt, s));
-  return 0;
-}
-
-int launch_dct2_dense(const float* v, const __nv_bfloat16* t0, const __nv_bfloat16* t1,
-                      float* tmp, float* out, Lat L, Batch bt, cudaStream_t s) {
-  MVTV_CHECK(launch_gemm(DenseFwd0{v, t0, tmp, L.m0, L.m1}, L.m0, L.m1, L.m0, L, bt, s));
-  MVTV_CHECK(launch_gemm(DenseFwd1{tmp, t1, out, L.m1}, L.m0, L.m1, L.m1, L, bt, s));
-  return 0;
-}
-
-int launch_idct2_dense(const float* y, const __nv_bfloat16* t0, const __nv_bfloat16* t1,
-                       float* tmp, float* out, const float* scal, int rz_new, int rz_old, Lat L,
-                       Batch bt, cudaStream_t s) {
-  MVTV_CHECK(launch_gemm(DenseInv0{y, t0, tmp, L.m0, L.m1}, L.m0, L.m1, L.m0, L, bt, s));
-  MVTV_CHECK(launch_gemm(DenseInv1{tmp, t1, out, scal, L.m1, rz_new, rz_old}, L.m0, L.m1, L.m1,
-                         L, bt, s));
   return 0;
 }
 

@@ -16,31 +16,42 @@
 //
 // The TPU kernels view the lattice as (m0 m1, m2) rows and stream row
 // panels with an (m1 + 8)-row halo through VMEM, because 256^3 does not fit
-// it.  None of that carries over: one thread per knot, the knots in C order
-// (m2 fastest, so neighbouring threads read neighbouring addresses), and
-// every thread reads its 3x3x3 neighbourhood straight from device memory;
-// at 256^3 two planes of theta and the 7 u blocks are about 4.6 MB, which
-// the 50 MB L2 holds.  Nothing passes between threads: the adjoint of block
-// b at knot x needs the block's values at the lower neighbours x - e,
-// e <= b (8 for (1,1,1), 4 for a two-axis block, 2 for one axis, 26 over
-// the 7 blocks), and each thread recomputes them (D_b theta from theta,
-// then the prox and the dual ascent), as B8 does in 2-D.  What the halo
-// code taught stays: neighbour indices wrap as jnp.roll does and the
+// it.  None of that carries over.  B13 and B14 run one thread per knot, the
+// knots in C order (m2 fastest, so neighbouring threads read neighbouring
+// addresses), each thread reading its 3x3x3 neighbourhood from L1/L2.
+// B12 marches planes: a CTA owns an 8 x 64 tile of the (x1, x2) plane and
+// 32 planes of axis 0, and computes each block's stage (D_b theta, the
+// prox, the dual ascent) once per point of the tile and its one-knot low
+// halo, plane after plane; the adjoint of block b at knot x needs the
+// block's values at the lower neighbours x - e, e <= b: the stage thread
+// takes its axis-0 step from its own values one plane below (registers)
+// and the knots read the rest from one plane of r, u_new (and alpha) in
+// shared memory (~90 KB with the adjoint carries, ~73 KB without).  theta and u stream in with
+// cp.async one plane ahead, so each value is read once, plus the halo: 66 x
+// 10 theta and 65 x 9 u points per 64 x 8 knots and one plane in 32 below
+// the chunk, about 16 % more reads than the unique bytes.  Neighbour indices
+// wrap as jnp.roll does, along every axis and at the plane below a chunk
+// that starts at 0: every halo row is a loaded row of the lattice, and the
 // blocks' trailing edges are zero, so a wrapped neighbour only ever lands
-// where an edge mask zeroes it.
+// where an edge mask zeroes it.  Remainder tiles (m1 % 8, m2 % 64, m0 %
+// 32) skip the points past the lattice's end, which no knot reads.
 //
 // Operation order is the TPU kernels': the forward chain differences axis
 // 0, then 1, then 2, with one combined edge mask (_fchain3); the adjoint
 // chain shifts up along the same axes in the same order (_achain3); the
-// block sums add the blocks in fd_binaries(3) order.
+// block sums add the blocks in fd_binaries(3) order.  Each knot's outputs
+// are the plain version's per-knot arithmetic; only the Boyd sums' order
+// of summation is the kernel's own (per thread, then per CTA, then the
+// fixed-order finish pass).
 //
 // Bound on the H100: device-memory bandwidth, one pass each.  B12 with
 // alpha skipped reads theta and 7 u and writes 7 u_new, dta and dtu: 68
-// bytes per knot (plus the five per-block partial sums and their finish
-// pass).  B13 in fused mode reads v, counts, oty, dta and dtu and writes r0:
-// 24 bytes per knot.  B14 reads 7 alpha, 7 u and oty and writes b: 64 bytes
-// per knot.  The scalars (kappa, rho, u_scale) stay on the device.  A simple
-// first version: no shared-memory tiling of the neighbourhood.
+// bytes per knot (plus the five per-CTA partial sums and their finish
+// pass); 1.14 GB, 0.34 ms at 256^3 at the published 3.35 TB/s.  B13 in
+// fused mode reads v, counts, oty, dta and dtu and writes r0: 24 bytes per
+// knot.  B14 reads 7 alpha, 7 u and oty and writes b: 64 bytes per knot.
+// The scalars (kappa, rho, u_scale) stay on the device.  B13 and B14 have
+// no shared-memory tiling of the neighbourhood yet.
 #include "common.cuh"
 
 namespace mvtv {
@@ -150,102 +161,279 @@ __device__ __forceinline__ size_t lower3(const Knot3& k, int e, Lat3 L) {
   return at3(k, -(e & 1), -((e >> 1) & 1), -((e >> 2) & 1), L);
 }
 
-// _wmasks3 of block B at y = x - e: 1 on the block's rows of the TRUE
-// problem (index < t_j - b_j along every axis).
-template <int B>
-__device__ __forceinline__ float wmask3(const Knot3& k, int e, const int (&tm)[3]) {
-  float w = 1.f;
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const int y = k.c[j][((e >> j) & 1) ? 0 : 1];
-    w *= y < tm[j] - ((B >> j) & 1) ? 1.f : 0.f;
-  }
-  return w;
+// ---- B12: the plane march ----
+//
+// A CTA owns a kT1 x kT2 tile of the (x1, x2) plane (x2 fastest) and a
+// chunk of kChunk planes along axis 0.  It marches from the plane below
+// its chunk to its last plane.  At each plane p one thread per point of
+// the tile and its one-knot low halo in axes 1 and 2 computes the stage of
+// every block (D_b theta, the prox, the dual ascent) once.  The adjoint of
+// block b at knot x combines the block's r, u_new (and alpha for the
+// adjoint carry) at x - e, e <= b, first along axis 0 (_achain3's order):
+// the thread keeps its point's values of plane p - 1 in registers and
+// writes the axis-0 difference (p - 1 minus p) for the blocks with an
+// axis-0 part, the value itself for the others, to shared memory; the
+// knots of plane p then finish their adjoints along axes 1 and 2 from
+// there.  theta of plane p + 2 (with a one-knot halo on both sides) and
+// the u blocks of plane p + 1 (with the low halo) are copied in with
+// cp.async behind plane p's work.
+constexpr int kT1 = 8, kT2 = 64, kChunk = 32;
+constexpr int kH1 = kT1 + 1, kH2 = kT2 + 1;     // stage points: tile + low halo
+constexpr int kPts = kH1 * kH2;
+constexpr int kTh1 = kT1 + 2, kTh2 = kT2 + 2;   // theta: low and high halo
+constexpr int kThPts = kTh1 * kTh2;
+// One thread per stage point (19 warps; the first kT1 kT2 threads also
+// form the adjoints of the tile's knots, one each).
+constexpr int kMarchThreads = (kPts + 31) / 32 * 32;
+constexpr int kThPerThread = (kThPts + kMarchThreads - 1) / kMarchThreads;
+
+// Shared memory of one CTA, in floats: 3 theta planes, 2 planes of the 7 u
+// blocks, and nv stage values (r, u_new[, alpha]) per block.
+constexpr int march_smem_floats(int nv) { return 3 * kThPts + 2 * 7 * kPts + 7 * nv * kPts; }
+
+inline dim3 march_grid(Lat3 L) {
+  return dim3((L.m2 + kT2 - 1) / kT2, (L.m1 + kT1 - 1) / kT1, (L.m0 + kChunk - 1) / kChunk);
 }
 
-// Accumulators of one knot of B12.
-struct DualAcc3 {
-  float st[3];  // |r|^2, |D theta|^2, |alpha|^2 at x
-  float dtr, dtu, dta;
+__device__ __forceinline__ int wrap(int i, int m) { return ((i % m) + m) % m; }
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The values a stage point shares across the blocks: dif[S] = theta's
+// chained forward differences along the axes of S (bit j = axis j) at y,
+// each formed with _fchain3's operations in its order (axis 0, then 1,
+// then 2), from the 8 values theta(y + f) in one butterfly; the edge masks
+// edge[j] = (y_j < m_j - 1); and the true-region row masks wa[j] = (y_j <
+// t_j) and wb[j] = (y_j < t_j - 1) of _wmasks3.
+struct Point3 {
+  float dif[8], edge[3], wa[3], wb[3];
 };
 
-// Block B of B12 at one knot: the stage at every x - e, e <= B, the
-// knot's own outputs and sums at e = 0, then the block's adjoint terms.
-template <int B, bool kWantAlpha, bool kWantAdjoints>
-__device__ __forceinline__ void dual_block3(const float (&th)[27], const float* __restrict__ u,
-                                            const Knot3& k, Lat3 L, float s, float kappa,
-                                            float us, const int (&tm)[3], float* __restrict__ a_out,
-                                            float* __restrict__ un_out, DualAcc3& acc) {
-  float va[8], vr[8], vu[8];
+__device__ __forceinline__ Point3 point3(const float* th0, const float* th1, int q,
+                                         const int (&y)[3], const int (&m)[3],
+                                         const int (&tm)[3]) {
+  Point3 P;
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    if (e & ~B) continue;
-    const float d = s * fchain3<B>(th, e, k, L);
-    const float ue = us * u[lower3(k, e, L)];
-    const float w = tm[0] >= 0 ? wmask3<B>(k, e, tm) : 1.f;
-    const float a = soft(d - ue, tm[0] >= 0 ? kappa * w : kappa);
-    const float r = a - d;
-    const float un = ue + r;
-    va[e] = a;
-    vr[e] = r;
-    vu[e] = un;
-    if (e == 0) {
-      if (kWantAlpha) a_out[k.idx] = a;
-      un_out[k.idx] = un;
-      const float sd = tm[0] >= 0 ? d * w : d;
-      const float sa = tm[0] >= 0 ? a * w : a;
-      acc.st[0] += r * r;
-      acc.st[1] += sd * sd;
-      acc.st[2] += sa * sa;
-    }
+  for (int f = 0; f < 8; ++f)
+    P.dif[f] = (f & 1 ? th1 : th0)[q + ((f >> 1) & 1) * kTh2 + ((f >> 2) & 1)];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int f = 0; f < 8; ++f)
+      if (!((f >> j) & 1)) P.dif[f | (1 << j)] = P.dif[f | (1 << j)] - P.dif[f];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    P.edge[j] = edge(y[j], m[j]);
+    P.wa[j] = y[j] < tm[j] ? 1.f : 0.f;
+    P.wb[j] = y[j] < tm[j] - 1 ? 1.f : 0.f;
   }
-  acc.dtr += s * achain3<B>(vr);
-  acc.dtu += s * achain3<B>(vu);
-  if (kWantAdjoints) acc.dta += s * achain3<B>(va);
+  return P;
+}
+
+// The stage of block B at a point: D_b theta with its combined edge mask,
+// the prox at kappa (kappa * _wmasks3 on the true rows of a padded solve,
+// masked when tm[0] >= 0), u_new = u_scale u + r.  sv receives the
+// block's (r, u_new[, alpha]) at this point (nv arrays of kPts, indexed by
+// pt); where B has an axis-0 part, their axis-0 adjoint difference instead,
+// the values pv of the point one plane below minus these, and pv takes
+// these.  An owned point (a knot of the tile at an owned plane) writes its
+// outputs and adds its sums.
+template <int B, bool kWantAlpha, bool kWantAdjoints>
+__device__ __forceinline__ void stage3(const Point3& P, float uv, int pt, bool masked, float s,
+                                       float kappa, float us, float* sv, float (&pv)[3],
+                                       bool owned, float* __restrict__ a_out,
+                                       float* __restrict__ un_out, size_t gidx,
+                                       float (&st)[5]) {
+  float mask = 1.f, w = 1.f;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    if ((B >> j) & 1) mask *= P.edge[j];
+    w *= (B >> j) & 1 ? P.wb[j] : P.wa[j];
+  }
+  const float d = s * (P.dif[B] * mask);
+  const float ue = us * uv;
+  const float a = soft(d - ue, masked ? kappa * w : kappa);
+  const float r = a - d;
+  const float un = ue + r;
+  constexpr int NV = kWantAdjoints ? 3 : 2;
+  float v[3] = {r, un, a};
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    if (B & 1) {
+      const float dv = pv[k] - v[k];
+      pv[k] = v[k];
+      v[k] = dv;
+    }
+    sv[k * kPts + pt] = v[k];
+  }
+  if (owned) {
+    if (kWantAlpha) a_out[gidx] = a;
+    un_out[gidx] = un;
+    const float sd = masked ? d * w : d;
+    const float sa = masked ? a * w : a;
+    st[0] += r * r;
+    st[1] += sd * sd;
+    st[2] += sa * sa;
+  }
+}
+
+// _achain3 of block B at the knot whose stage point is pt, along axes 1
+// and 2, from value k of the stage's shared values sv (the axis-0
+// difference where B has an axis-0 part) at the lower neighbours x - e
+// of plane p: sv[k * kPts + pt - e1 kH2 - e2].
+template <int B>
+__device__ __forceinline__ float achain12(const float* sv, int k, int pt) {
+  float v[8];
+#pragma unroll
+  for (int e = 0; e < 8; e += 2)
+    if (!(e & ~B)) v[e] = sv[k * kPts + pt - ((e >> 1) & 1) * kH2 - ((e >> 2) & 1)];
+#pragma unroll
+  for (int j = 1; j < 3; ++j) {
+    if (!((B >> j) & 1)) continue;
+#pragma unroll
+    for (int e = 0; e < 8; e += 2)
+      if (!(e & ~B) && !((e >> j) & 1)) v[e] = v[e | (1 << j)] - v[e];
+  }
+  return v[0];
 }
 
 template <bool kWantAlpha, bool kWantAdjoints>
-__global__ void __launch_bounds__(kThreads)
-dual3_kernel(const float* __restrict__ theta, In7 u, const float* __restrict__ scal, Scales7 sc,
-             int t0, int t1, int t2, float* __restrict__ alpha, float* __restrict__ u_new,
-             float* __restrict__ dta, float* __restrict__ dtu, float* __restrict__ partials,
-             Lat3 L) {
-  const size_t n = size_t(L.m0) * L.m1 * L.m2;
-  const size_t idx = size_t(blockIdx.x) * kThreads + threadIdx.x;
-  float st[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  if (idx < n) {
-    const Knot3 k = knot3(idx, L);
-    const float kappa = scal[S_KAPPA], us = scal[S_USCALE];
-    const int tm[3] = {t0, t1, t2};
-    float th[27];
-    load27(theta, k, L, th);
-    DualAcc3 acc = {{0.f, 0.f, 0.f}, 0.f, 0.f, 0.f};
-#define MVTV_BLOCK3(K, BIN)                                                               \
-  dual_block3<BIN, kWantAlpha, kWantAdjoints>(th, u.p[K], k, L, sc.s[K], kappa, us, tm, \
-                                              kWantAlpha ? alpha + K * n : nullptr,    \
-                                              u_new + K * n, acc)
-    MVTV_BLOCK3(0, kBin0);
-    MVTV_BLOCK3(1, kBin1);
-    MVTV_BLOCK3(2, kBin2);
-    MVTV_BLOCK3(3, kBin3);
-    MVTV_BLOCK3(4, kBin4);
-    MVTV_BLOCK3(5, kBin5);
-    MVTV_BLOCK3(6, kBin6);
-#undef MVTV_BLOCK3
-    st[0] = acc.st[0];
-    st[1] = acc.st[1];
-    st[2] = acc.st[2];
-    st[3] = acc.dtr * acc.dtr;
-    st[4] = acc.dtu * acc.dtu;
-    if (kWantAdjoints) {
-      dta[idx] = acc.dta;
-      dtu[idx] = acc.dtu;
-    }
+__global__ void __launch_bounds__(kMarchThreads, 1)
+dual3_march_kernel(const float* __restrict__ theta, In7 u, const float* __restrict__ scal,
+                   Scales7 sc, int t0, int t1, int t2, float* __restrict__ alpha,
+                   float* __restrict__ u_new, float* __restrict__ dta, float* __restrict__ dtu,
+                   float* __restrict__ partials, Lat3 L) {
+  constexpr int NV = kWantAdjoints ? 3 : 2;
+  extern __shared__ __align__(16) float smem[];
+  float* th_s = smem;                // [3][kThPts]: theta planes, a ring
+  float* u_s = th_s + 3 * kThPts;    // [2][7][kPts]: u planes, a ring
+  float* sv_s = u_s + 2 * 7 * kPts;  // [7][NV][kPts]: stage values
+
+  const int tid = threadIdx.x;
+  const int o1 = blockIdx.y * kT1, o2 = blockIdx.x * kT2;  // the tile's first knot
+  const int c0 = blockIdx.z * kChunk, c1 = min(c0 + kChunk, L.m0);
+  const int nsteps = c1 - c0 + 1;  // stage planes c0 - 1 .. c1 - 1
+  const size_t plane = size_t(L.m1) * L.m2, n = plane * L.m0;
+  const int m[3] = {L.m0, L.m1, L.m2};
+  const int tm[3] = {t0, t1, t2};
+  const float kappa = scal[S_KAPPA], us = scal[S_USCALE];
+
+  // This thread's theta points (local (a1, a2) = (i / kTh2, i % kTh2) at
+  // global (o1 - 1 + a1, o2 - 1 + a2), wrapped) and its stage point (local
+  // (l1, l2) = (tid / kH2, tid % kH2) likewise): in-plane offsets, -1 where
+  // the point lies past the lattice's end (a remainder tile), never read.
+  int th_off[kThPerThread];
+#pragma unroll
+  for (int i = 0; i < kThPerThread; ++i) {
+    const int idx = tid + i * kMarchThreads, a1 = idx / kTh2, a2 = idx % kTh2;
+    th_off[i] = -1;
+    if (idx < kThPts && a1 <= L.m1 - o1 + 1 && a2 <= L.m2 - o2 + 1)
+      th_off[i] = wrap(o1 - 1 + a1, L.m1) * L.m2 + wrap(o2 - 1 + a2, L.m2);
   }
+  const int l1 = tid / kH2, l2 = tid % kH2;
+  const bool pt_in = tid < kPts && l1 <= L.m1 - o1 && l2 <= L.m2 - o2;
+  const bool pt_own = pt_in && l1 >= 1 && l2 >= 1;
+  const int y1 = pt_in ? wrap(o1 - 1 + l1, L.m1) : 0, y2 = pt_in ? wrap(o2 - 1 + l2, L.m2) : 0;
+  const int pt_off = y1 * L.m2 + y2;
+  const int q = l1 * kTh2 + l2;  // the stage point's theta
+  // theta plane c0 - 1 + j into ring slot j % 3; u plane c0 - 1 + s into s % 2.
+  auto load_theta = [&](int j) {
+    const float* src = theta + size_t(wrap(c0 - 1 + j, L.m0)) * plane;
+    float* dst = th_s + (j % 3) * kThPts;
+#pragma unroll
+    for (int i = 0; i < kThPerThread; ++i)
+      if (th_off[i] >= 0) cp_async4(dst + tid + i * kMarchThreads, src + th_off[i]);
+  };
+  auto load_u = [&](int s) {
+    if (!pt_in) return;
+    const size_t po = size_t(wrap(c0 - 1 + s, L.m0)) * plane + pt_off;
+    float* dst = u_s + (s & 1) * 7 * kPts + tid;
+#pragma unroll
+    for (int b = 0; b < 7; ++b) cp_async4(dst + b * kPts, u.p[b] + po);
+  };
+  load_theta(0);
+  load_theta(1);
+  load_u(0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  float st[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  float pv[7][3] = {};  // this point's values one plane below (blocks with an axis-0 part)
+  const int k1 = tid / kT2, k2 = tid % kT2;  // this thread's knot of the tile
+  const bool knot_in = tid < kT1 * kT2 && o1 + k1 < L.m1 && o2 + k2 < L.m2;
+  for (int s = 0; s < nsteps; ++s) {
+    // The next plane's theta and u, in flight during this plane's work.
+    if (s + 2 <= nsteps) load_theta(s + 2);
+    if (s + 1 < nsteps) load_u(s + 1);
+    cp_async_commit();
+    const int p = wrap(c0 - 1 + s, L.m0);
+    if (pt_in) {
+      const float* uc = u_s + (s & 1) * 7 * kPts + tid;
+      const int y[3] = {p, y1, y2};
+      const Point3 P = point3(th_s + (s % 3) * kThPts, th_s + ((s + 1) % 3) * kThPts, q, y, m,
+                              tm);
+      const bool owned = s >= 1 && pt_own, masked = tm[0] >= 0;
+      const size_t g = size_t(p) * plane + pt_off;
+#define MVTV_STAGE3(K, BIN)                                                                   \
+  stage3<BIN, kWantAlpha, kWantAdjoints>(P, uc[K * kPts], tid, masked, sc.s[K], kappa, us,    \
+                                         sv_s + K * NV * kPts, pv[K], owned,                  \
+                                         kWantAlpha ? alpha + K * n : nullptr, u_new + K * n, \
+                                         g, st)
+      MVTV_STAGE3(0, kBin0);
+      MVTV_STAGE3(1, kBin1);
+      MVTV_STAGE3(2, kBin2);
+      MVTV_STAGE3(3, kBin3);
+      MVTV_STAGE3(4, kBin4);
+      MVTV_STAGE3(5, kBin5);
+      MVTV_STAGE3(6, kBin6);
+#undef MVTV_STAGE3
+    }
+    __syncthreads();
+    // The adjoints of plane p's knots (_achain3 along axes 1 and 2, blocks
+    // in fd_binaries(3) order) from the stage's shared values.
+    if (s >= 1 && knot_in) {
+      const int pt = (k1 + 1) * kH2 + k2 + 1;
+      float ar = 0.f, au = 0.f, aa = 0.f;
+#define MVTV_ADJ3(K, BIN)                                                      \
+  do {                                                                         \
+    const float* v = sv_s + K * NV * kPts;                                     \
+    ar += sc.s[K] * achain12<BIN>(v, 0, pt);                                   \
+    au += sc.s[K] * achain12<BIN>(v, 1, pt);                                   \
+    if (kWantAdjoints) aa += sc.s[K] * achain12<BIN>(v, 2, pt);                \
+  } while (0)
+      MVTV_ADJ3(0, kBin0);
+      MVTV_ADJ3(1, kBin1);
+      MVTV_ADJ3(2, kBin2);
+      MVTV_ADJ3(3, kBin3);
+      MVTV_ADJ3(4, kBin4);
+      MVTV_ADJ3(5, kBin5);
+      MVTV_ADJ3(6, kBin6);
+#undef MVTV_ADJ3
+      st[3] += ar * ar;
+      st[4] += au * au;
+      if (kWantAdjoints) {
+        const size_t g = size_t(p) * plane + size_t(o1 + k1) * L.m2 + (o2 + k2);
+        dta[g] = aa;
+        dtu[g] = au;
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  const int nb = gridDim.x * gridDim.y * gridDim.z;
+  const int bid = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
 #pragma unroll
   for (int v = 0; v < 5; ++v) {
     const float tot = block_sum(st[v]);
-    if (threadIdx.x == 0) partials[v * gridDim.x + blockIdx.x] = tot;
+    if (tid == 0) partials[v * nb + bid] = tot;
   }
 }
 
@@ -334,29 +522,45 @@ inline unsigned flat_blocks(Lat3 L) {
 // written only with want_alpha, u_out (7 lattices) always, dta/dtu only with
 // want_adjoints.  t0 < 0: no true-region masks.  Exactly one of the two
 // flags is set (the pairs that a route launches).  The 5 statistics land in
-// scal[S_STATS .. S_STATS + 4]; partials holds 5 floats per 256-knot block.
+// scal[S_STATS .. S_STATS + 4]; partials (partials_len floats) holds 5 per
+// CTA of the plane march (mvtv_dual_update_tiled_3d_blocks).
+extern "C" int mvtv_dual_update_tiled_3d_blocks(int m0, int m1, int m2) {
+  const dim3 g = mvtv::march_grid(mvtv::Lat3{m0, m1, m2});
+  return int(g.x * g.y * g.z);
+}
+
 extern "C" int mvtv_dual_update_tiled_3d(
     const float* theta, const float* u0, const float* u1, const float* u2, const float* u3,
     const float* u4, const float* u5, const float* u6, const float* kappa, const float* uscale,
     float s0, float s1, float s2, float s3, float s4, float s5, float s6, int t0, int t1,
     int t2, int want_alpha, int want_adjoints, float* alpha_out, float* u_out, float* dta,
-    float* dtu, float* partials, float* scal, int m0, int m1, int m2, void* stream) {
+    float* dtu, float* partials, long long partials_len, float* scal, int m0, int m1, int m2,
+    void* stream) {
   using namespace mvtv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Lat3 L{m0, m1, m2};
   const In7 u{{u0, u1, u2, u3, u4, u5, u6}};
   const Scales7 sc{{s0, s1, s2, s3, s4, s5, s6}};
-  const unsigned grid = flat_blocks(L);
-  if ((want_alpha != 0) == (want_adjoints != 0)) return int(cudaErrorInvalidValue);
+  const dim3 grid = march_grid(L);
+  const long long nb = (long long)grid.x * grid.y * grid.z;
+  if ((want_alpha != 0) == (want_adjoints != 0) || partials_len < 5 * nb ||
+      (long long)m1 * m2 > 0x7fffffffLL)
+    return int(cudaErrorInvalidValue);
   MVTV_CHECK(launch_init_scalars(scal, nullptr, nullptr, uscale, nullptr, kappa, kOne, s));
-  if (want_alpha)
-    dual3_kernel<true, false><<<grid, kThreads, 0, s>>>(theta, u, scal, sc, t0, t1, t2,
-                                                        alpha_out, u_out, dta, dtu, partials, L);
-  else
-    dual3_kernel<false, true><<<grid, kThreads, 0, s>>>(theta, u, scal, sc, t0, t1, t2,
-                                                        alpha_out, u_out, dta, dtu, partials, L);
+  const size_t bytes = sizeof(float) * march_smem_floats(want_adjoints ? 3 : 2);
+  if (want_alpha) {
+    MVTV_CHECK(int(cudaFuncSetAttribute(dual3_march_kernel<true, false>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes))));
+    dual3_march_kernel<true, false><<<grid, kMarchThreads, bytes, s>>>(
+        theta, u, scal, sc, t0, t1, t2, alpha_out, u_out, dta, dtu, partials, L);
+  } else {
+    MVTV_CHECK(int(cudaFuncSetAttribute(dual3_march_kernel<false, true>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes))));
+    dual3_march_kernel<false, true><<<grid, kMarchThreads, bytes, s>>>(
+        theta, u, scal, sc, t0, t1, t2, alpha_out, u_out, dta, dtu, partials, L);
+  }
   MVTV_LAUNCHED();
-  MVTV_CHECK(launch_finish(partials, int(grid), 5, scal + S_STATS, kOne, s));
+  MVTV_CHECK(launch_finish(partials, int(nb), 5, scal + S_STATS, kOne, s));
   return int(cudaGetLastError());
 }
 

@@ -17,13 +17,18 @@
 // beta) never leave the device: each kernel reads them from ``scal``, and
 // pap and rz are guarded by eps = 1e-30 as in the TPU kernel.
 //
-// Bound on the H100: the DCT products (dct_gemm.cu; B6's dense ones do
-// twice the folded ones' multiply-adds), then launch latency: about 25
-// launches per x-update.  The stencil and elementwise stages are
-// bandwidth-bound passes over L2-resident lattices (B7 is one of them).
-// Every stage takes a
-// batch of problems as blockIdx.z (common.cuh, Batch), so B problems cost
-// the same launches as one.
+// Bound on the H100: the DCT products, then launch latency: about 25
+// launches per x-update.  B3's folded products are dct_gemm.cu's SIMT GEMM;
+// B6's dense ones (twice the folded multiply-adds, 25.7 GFLOP at 1023^2,
+// 0.026 ms at 989 TFLOP/s) run on the tensor cores (dct_mma.cu: mma.sync
+// from ldmatrix over padded bf16 operands), which leaves B6's stencil, CG
+// and finish stages a large share of its time.  The
+// stencil and elementwise stages are bandwidth-bound passes over
+// L2-resident lattices (B7 is one of them).  Every stage takes a batch of
+// problems as blockIdx.z (common.cuh, Batch), so B problems cost the same
+// launches as one.
+#include <cstdint>
+
 #include "stencil.cuh"
 
 namespace mvtv {
@@ -114,15 +119,14 @@ static int precond(const float* r, float* p, Transforms tf, const float* eigs, f
                    cudaStream_t s) {
   const dim3 grid = stencil_grid(L, bt.B), block(TX, TY);
   const int rz_p = rz_old < 0 ? -1 : rz_new;
-  if (tf.t0)
-    MVTV_CHECK(launch_dct2_dense(r, tf.t0, tf.t1, wb.tmp, wb.spec, L, bt, s));
+  if (tf.dn.t0)
+    MVTV_CHECK(launch_dct2_dense(r, tf.dn, wb.spec, L, bt, s));
   else
     MVTV_CHECK(launch_dct2_packed(r, tf.hv, wb.tmp, wb.spec, L, bt, s));
   spectral_scale_dot_kernel<<<grid, block, 0, s>>>(wb.spec, eigs, scal, partials, L, bt);
   MVTV_LAUNCHED();
   MVTV_CHECK(launch_finish(partials, stencil_blocks(L), 1, scal + rz_new, bt, s));
-  if (tf.t0)
-    return launch_idct2_dense(wb.spec, tf.t0, tf.t1, wb.tmp, p, scal, rz_p, rz_old, L, bt, s);
+  if (tf.dn.t0) return launch_idct2_dense(wb.spec, tf.dn, p, scal, rz_p, rz_old, L, bt, s);
   return launch_idct2_packed(wb.spec, tf.hv, wb.tmp, p, scal, rz_p, rz_old, L, bt, s);
 }
 
@@ -178,8 +182,14 @@ extern "C" int mvtv_xupdate_pcg_2d_packed(const float* b, const float* x0, const
 // B6 entry point (xupdate_pcg_2d, pallas_kernels.py:505; kernel :319-398):
 // B3's chain with the dense bf16 DCT matrices t0 (m0 x m0) and t1 (m1 x m1)
 // and the Gram eigenvalues in natural order, for any m0, m1 (an odd axis
-// has no folded halves).  work holds 5 lattices; ||r||^2 lands in
-// scal[S_STATS + 5].
+// has no folded halves).  work holds mvtv_xupdate_pcg_2d_work(m0, m1)
+// floats: 5 lattices, then the tensor-core products' padded bf16 operands
+// (dct_mma.cu); ||r||^2 lands in scal[S_STATS + 5].
+extern "C" int mvtv_xupdate_pcg_2d_work(int m0, int m1) {
+  // 4 floats of slack to align the bf16 buffers to 16 bytes
+  return 5 * m0 * m1 + 4 + mvtv::dense_scratch_bytes(mvtv::Lat{m0, m1}) / 4;
+}
+
 extern "C" int mvtv_xupdate_pcg_2d(const float* b, const float* x0, const float* counts,
                                    const void* t0, const void* t1, const float* eigs,
                                    const float* rho, const float* cbar, float s_mix, float s_ax1,
@@ -190,9 +200,12 @@ extern "C" int mvtv_xupdate_pcg_2d(const float* b, const float* x0, const float*
   const Lat L{m0, m1};
   const size_t n = size_t(m0) * m1;
   const PcgBuffers wb{work, work + n, work + 2 * n, work + 3 * n, work + 4 * n};
+  const uintptr_t extra = (reinterpret_cast<uintptr_t>(work + 5 * n) + 15) / 16 * 16;
   const Transforms tf{Halves{nullptr, nullptr, nullptr, nullptr},
-                      static_cast<const __nv_bfloat16*>(t0), static_cast<const __nv_bfloat16*>(t1)};
+                      dense_layout(reinterpret_cast<void*>(extra), L)};
   const Scales sc{s_mix, s_ax1, s_ax0};
+  MVTV_CHECK(launch_dense_mats(static_cast<const __nv_bfloat16*>(t0),
+                               static_cast<const __nv_bfloat16*>(t1), tf.dn, L, s));
   MVTV_CHECK(launch_init_scalars(scal, nullptr, rho, nullptr, cbar, nullptr, kOne, s));
   MVTV_CHECK(launch_residual(B_GIVEN, b, x0, counts, nullptr, nullptr, nullptr, nullptr, nullptr,
                              nullptr, nullptr, scal, sc, wb.r, L, kOne, s));

@@ -14,7 +14,7 @@ the three row-slab kernels of the sharded route:
   xupdate_pcg_2d_packed         _xupdate_kernel_packed (B3)                  xupdate.cu, dct_gemm.cu
   admm_iters_2d                 _admm_iters_kernel/_admm_chain (B4)          chain.cu (+ the above)
   admm_iters_2d_batched         _admm_iters_batched_kernel/_admm_chain (B5)  chain.cu (+ the above)
-  xupdate_pcg_2d                _xupdate_kernel (B6)                         xupdate.cu, dct_gemm.cu
+  xupdate_pcg_2d                _xupdate_kernel (B6)                         xupdate.cu, dct_mma.cu
   gram_matvec_2d                _gram_matvec_kernel (B7)                     xupdate.cu, reduce.cu
   dual_update_tiled_2d          _tiled_dual_kernel (B8)                      tiled.cu, dual.cu
   gram_residual_tiled_2d        _tiled_gram_res_kernel (B9)                  tiled.cu
@@ -30,8 +30,8 @@ the three row-slab kernels of the sharded route:
 
 B4 is the B = 1 case of B5's launcher: one chain of stage kernels, each
 with a batch coordinate, serves both.  B6 is B3's chain with the dense
-bf16 DCT matrices (any axes); B7 is its matvec stage with the dot's finish
-pass.  B8 is B1's stage kernel with two template flags.  B11 is B2's kernel,
+bf16 DCT matrices (any axes), its products on the tensor cores; B7 is its
+matvec stage with the dot's finish pass.  B8 is B1's stage kernel with two template flags.  B11 is B2's kernel,
 which takes any m0, m1.  B11, B14 and B11s have no ADMM caller, as in the
 JAX package.  ``gram_matvec_tiled_2d_shard`` is B9s's kernel in its matvec
 mode, the sharded PCG's matvec (the JAX package leaves it to XLA).
@@ -525,10 +525,13 @@ _ARGTYPES = {
     "mvtv_admm_iters_2d_batched": ([_P] * 9 + [_LL] + [_P] * 10 + [_F] * 3 + [_I, _I]
                                    + [_F] * 3 + [_I] * 3 + [_P] * 3 + [_I] * 3 + [_P]),
     "mvtv_xupdate_pcg_2d": [_P] * 8 + [_F] * 3 + [_I] + [_P] * 4 + [_I, _I, _P],
+    "mvtv_xupdate_pcg_2d_work": [_I, _I],
     "mvtv_gram_matvec_2d": [_P] * 3 + [_F] * 3 + [_P] * 3 + [_I, _I, _P],
     "mvtv_dual_update_tiled_2d": [_P] * 6 + [_F] * 3 + [_I] * 4 + [_P] * 6 + [_I, _I, _P],
     "mvtv_gram_tiled_2d": [_I] + [_P] * 8 + [_F] * 3 + [_P, _I, _I, _P],
-    "mvtv_dual_update_tiled_3d": [_P] * 10 + [_F] * 7 + [_I] * 5 + [_P] * 6 + [_I] * 3 + [_P],
+    "mvtv_dual_update_tiled_3d": ([_P] * 10 + [_F] * 7 + [_I] * 5 + [_P] * 5 + [_LL, _P]
+                                  + [_I] * 3 + [_P]),
+    "mvtv_dual_update_tiled_3d_blocks": [_I] * 3,
     "mvtv_gram_tiled_3d": [_I] + [_P] * 8 + [_F] * 7 + [_P] + [_I] * 3 + [_P],
     "mvtv_rhs_tiled_3d": [_P] * 17 + [_F] * 7 + [_P] + [_I] * 3 + [_P],
     "mvtv_stream_copy": [_P, _P, _LL, _I, _P],
@@ -714,7 +717,8 @@ def xupdate_pcg_2d(b: torch.Tensor, x0: torch.Tensor, counts: torch.Tensor, mats
     dev = b.device
     lib = _lib()
     x = torch.empty_like(b)
-    work = torch.empty((5,) + shape, dtype=torch.float32, device=dev)
+    # 5 lattices and the tensor-core products' padded bf16 operands
+    work = torch.empty(lib.mvtv_xupdate_pcg_2d_work(*shape), dtype=torch.float32, device=dev)
     scal = _scal_buffer(n_steps, dev)
     partials = _partials(shape, 1, dev)
     t0, t1 = mats_lp
@@ -1137,12 +1141,6 @@ def _check_blocks3(shape, scales, *block_sets):
         _check_lattices(shape, *blocks, rank=3)
 
 
-def _partials3(shape, nv: int, device) -> torch.Tensor:
-    """nv partial sums per 256-thread block of the flat 3-D launch."""
-    nblocks = -(-int(np.prod(shape)) // 256)
-    return torch.empty(nv * nblocks, dtype=torch.float32, device=device)
-
-
 def dual_update_tiled_3d(theta: torch.Tensor, u: Sequence[torch.Tensor], kappa,
                          scales: Sequence[float], u_scale=None,
                          true_m: Optional[Tuple[int, int, int]] = None,
@@ -1169,7 +1167,9 @@ def dual_update_tiled_3d(theta: torch.Tensor, u: Sequence[torch.Tensor], kappa,
     n_a, n_d = (7 if want_alpha else 0), (2 if want_adjoints else 0)
     out = torch.empty((n_a + 7 + n_d,) + shape, dtype=torch.float32, device=dev)
     scal = _scal_buffer(0, dev)
-    partials = _partials3(shape, 5, dev)
+    # 5 partial sums per CTA of the plane march
+    partials = torch.empty(5 * lib.mvtv_dual_update_tiled_3d_blocks(*shape),
+                           dtype=torch.float32, device=dev)
     tm = (-1, -1, -1) if true_m is None else tuple(int(v) for v in true_m)
     err = lib.mvtv_dual_update_tiled_3d(
         theta.data_ptr(), *(t.data_ptr() for t in u), _scalar_ptr(kappa, dev),
@@ -1177,7 +1177,7 @@ def dual_update_tiled_3d(theta: torch.Tensor, u: Sequence[torch.Tensor], kappa,
         out[0].data_ptr() if want_alpha else None, out[n_a].data_ptr(),
         out[n_a + 7].data_ptr() if want_adjoints else None,
         out[n_a + 8].data_ptr() if want_adjoints else None,
-        partials.data_ptr(), scal.data_ptr(), *shape, _stream(dev))
+        partials.data_ptr(), partials.numel(), scal.data_ptr(), *shape, _stream(dev))
     _raise_on(err, "dual_update_tiled_3d")
     launch_counts["dual_update_tiled_3d"] += 1
     res = (tuple(out[0:7].unbind(0)) if want_alpha else None,

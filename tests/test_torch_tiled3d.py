@@ -61,11 +61,11 @@ def _close(got, want, tol=1e-5):
 # B12, B13, B14: plain versions against the JAX kernels in interpret mode
 # ---------------------------------------------------------------------------
 
-def _kernel_inputs(seed=3):
+def _kernel_inputs(seed=3, m=M3):
     rng = np.random.RandomState(seed)
     scales = tuple(float(s) for s in jdiff.delta_scales(BINS3, jnp.asarray(DELTAS3)))
-    theta = rng.randn(*M3).astype(np.float32)
-    u = tuple((rng.randn(*M3) * np.asarray(jdiff.edge_mask(M3, b))).astype(np.float32)
+    theta = rng.randn(*m).astype(np.float32)
+    u = tuple((rng.randn(*m) * np.asarray(jdiff.edge_mask(m, b))).astype(np.float32)
               for b in BINS3)
     return scales, theta, u, rng
 
@@ -75,16 +75,29 @@ def test_block_order_is_jax():
     assert admm.TILED3_MIN_KNOTS == pk.TILED3_MIN_KNOTS == 1 << 22
 
 
+# (lattice, JAX panel rows, true_m).  Besides M3, lattices with odd m0 and
+# m1 (odd m0 m1 rows, so panels of 15 and 35 rows) and an m2 that is no
+# multiple of 64: they pin the wrap at every axis's first row and the
+# remainder tiles that the card's plane-marching B12 must keep.
+DUAL3_CASES = [pytest.param((M3, T3, None), id="None"),
+               pytest.param((M3, T3, (5, 7, 120)), id="true_m1"),
+               pytest.param(((9, 5, 72), 15, None), id="9x5x72-None"),
+               pytest.param(((9, 5, 72), 15, (8, 4, 70)), id="9x5x72-true_m"),
+               pytest.param(((7, 15, 40), 35, None), id="7x15x40-None"),
+               pytest.param(((7, 15, 40), 35, (6, 13, 37)), id="7x15x40-true_m")]
+
+
 @pytest.mark.parametrize("want_alpha,want_adjoints", [(True, False), (False, True),
                                                       (True, True)])
-@pytest.mark.parametrize("true_m", [None, (5, 7, 120)])
-def test_dual_update_tiled_3d_matches_jax(want_alpha, want_adjoints, true_m):
-    scales, theta, u, _ = _kernel_inputs()
+@pytest.mark.parametrize("case", DUAL3_CASES)
+def test_dual_update_tiled_3d_matches_jax(want_alpha, want_adjoints, case):
+    m, tile_rows, true_m = case
+    scales, theta, u, _ = _kernel_inputs(m=m)
     kappa, us = np.float32(0.3), np.float32(0.7)
     want = pk.dual_update_tiled_3d(jnp.asarray(theta), tuple(map(jnp.asarray, u)),
                                    jnp.float32(kappa), scales, u_scale=jnp.float32(us),
                                    true_m=true_m, want_adjoints=want_adjoints,
-                                   want_alpha=want_alpha, interpret=True, tile_rows=T3)
+                                   want_alpha=want_alpha, interpret=True, tile_rows=tile_rows)
     got = K.dual_update_tiled_3d(torch.as_tensor(theta), tuple(map(torch.as_tensor, u)),
                                  torch.tensor(kappa), scales, u_scale=torch.tensor(us),
                                  true_m=true_m, want_adjoints=want_adjoints,

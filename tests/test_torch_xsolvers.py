@@ -66,7 +66,7 @@ def system(m, seed=3):
 # B6, B7, B11: plain versions against the JAX kernels in interpret mode
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("m", [(15, 17), (31, 33)])
+@pytest.mark.parametrize("m", [(15, 17), (31, 33), (13, 47)])
 @pytest.mark.parametrize("start", ["cold", "warm"])
 def test_xupdate_pcg_2d_matches_pallas(m, start):
     """B6's plain version (bf16 operands rounded at the TPU kernel's points,
@@ -95,6 +95,45 @@ def test_xupdate_pcg_2d_matches_pallas(m, start):
     # and the solve moved x0 toward the exact solution
     assert (np.max(np.abs(x.numpy() - x_star.numpy()))
             < np.max(np.abs(x0 - x_star.numpy())))
+
+
+def _pad8(a, rows=None):
+    """a (bf16 or float32) as the card's padded bf16 operand: columns
+    zero-padded to a multiple of 8 (and rows to ``rows``)."""
+    r, c = a.shape
+    out = torch.zeros((rows or r, -(-c // 8) * 8), dtype=torch.bfloat16)
+    out[:r, :c] = a.to(torch.bfloat16)
+    return out
+
+
+@pytest.mark.parametrize("m", [(13, 47), (15, 17)])
+def test_dense_dct_padded_layout_matches(m):
+    """B6's tensor-core products (csrc/dct_mma.cu) run on bf16 operands whose
+    rows are zero-padded to a multiple of 8 (16-byte cp.async chunks), the
+    first product stored as padded bf16: the same transforms, computed over
+    that layout with float32 sums, equal the plain version's unpadded
+    dct2_dense / idct2_dense (the zero pads add nothing) to float32
+    summation order."""
+    m0, m1 = m
+    _, ops = jops_and_ops(m)
+    t0, t1 = ops.dct_mats_lp
+    v = t(np.random.RandomState(7).randn(m0, m1))
+    ld0, ld1 = _pad8(t0).shape[1], _pad8(t1).shape[1]
+    t0p, t1p, xp = _pad8(t0), _pad8(t1), _pad8(v, rows=ld0)
+    f32 = torch.float32
+    # forward: tb = T0 x (k over ld0, pad rows of x zero), out = tb T1'
+    tb = _pad8((t0p.to(f32) @ xp.to(f32))[:, :m1])
+    fwd = (tb.to(f32) @ t1p.to(f32).T[:ld1, :m1])[:, :m1]
+    np.testing.assert_allclose(fwd.numpy(), tdct.dct2_dense(v, t0, t1).numpy(), rtol=1e-5,
+                               atol=1e-5 * float(fwd.abs().max()))
+    # inverse: tb = T0' x, out = tb T1
+    t0tp = _pad8(t0p.to(f32)[:, :m0].T.contiguous(), rows=m0)
+    tb = _pad8((t0tp.to(f32) @ xp.to(f32))[:, :m1])
+    t1pp = torch.zeros((ld1, ld1), dtype=f32)
+    t1pp[:m1] = t1p.to(f32)
+    inv = (tb.to(f32) @ t1pp)[:, :m1]
+    np.testing.assert_allclose(inv.numpy(), tdct.idct2_dense(v, t0, t1).numpy(), rtol=1e-5,
+                               atol=1e-5 * float(inv.abs().max()))
 
 
 @pytest.mark.parametrize("m", [(15, 17), (16, 24)])
