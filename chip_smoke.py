@@ -39,8 +39,10 @@ single-card mvtv's tie set, with its row-slab kernels B8s, B9s and B11s
 also held, on four row slabs of the 2048^2 state with real halos, against
 the whole-lattice kernels; and the two repaired routes, mvtv_one at
 16384 x 256 (no folded DCT halves) and at 16^4 (p = 4), each against the
-exact-f32 route.  Phase 3 also holds B6 at 511 x 2047 and B12 at
-258 x 130 x 136, shapes that leave remainders in their kernels' tiles.
+exact-f32 route.  Phase 3 also holds B6 at 511 x 2047 and B12 and B13 at
+258 x 130 x 136, shapes that leave remainders in their kernels' tiles, B13
+at the C3 folds' 256 x 256 x 64, and B1 at 1023^2 and 511 x 2047 with a
+second run bit for bit.
 It shows through the launch counters that the paths ran every kernel,
 measures the device-memory ceiling with a streaming-copy probe, times each
 kernel beside its plain version and its bound (B3-B5 also with their
@@ -65,7 +67,10 @@ path at a tighter tolerance on both routes (the witness for that phase's
 gate); phase 14, run only when listed, holds the 256^3 and
 255 x 255 x 256 fits and the 256^3 lambda path against the exact-f32 route
 (about 16 minutes on an H100); phase 18, run only when listed, re-runs
-phase 12's C3 check at tol = 1e-5 (the witness for its tolerances).  Each
+phase 12's C3 check at tol = 1e-5 (the witness for its tolerances);
+phase 19, run only when listed, times B1, B2, B4, B5, B8, B9s's matvec
+and B13 at their launch sizes with nothing else (copied into an older
+checkout's root, it times that tree's kernels: an A/B in one call).  Each
 phase header carries the seconds since the start.
 
     python3 chip_smoke.py --phases 1,2,3      # build and kernel checks only
@@ -73,6 +78,7 @@ phase header carries the seconds since the start.
     python3 chip_smoke.py --phases 1,2,15     # the profiles' fits
     python3 chip_smoke.py --phases 1,2,16,17  # the sharded path and its timing
     python3 chip_smoke.py --phases 1,2,11     # the path-gap witness
+    python3 chip_smoke.py --phases 1,2,19     # kernels at their launch sizes
 """
 
 from __future__ import annotations
@@ -306,11 +312,12 @@ FITS3 = ("256^3 n=2^22", "255x255x256 n=2^22", "128^3 n=2^21")
 EXACT3 = ("128^3 n=2^21",)
 PATH3 = "256x256x64 n=2^22"
 TILED3 = ("dual_update_tiled_3d", "gram_residual_tiled_3d", "rhs_tiled_3d")
-# The lattices on which phase 3 holds B12 against its plain version: the
-# main path's 256^3, and one of 2^22 knots or more whose m1 and m2 are not
-# multiples of B12's 8 x 64 plane tile nor m0 of its 32-plane chunk (the
-# plane march's remainder tiles and wrap), each with the true_m masks of a
-# lattice one knot shorter on axes 0 and 1 (on 256^3: 255 x 255 x 256).
+# The lattices on which phase 3 holds B12 and B13 against their plain
+# versions: the main path's 256^3, and one of 2^22 knots or more whose m1
+# and m2 are not multiples of the plane march's 8 x 64 tile nor m0 of its
+# 32-plane chunk (its remainder tiles and wrap), B12 each with the true_m
+# masks of a lattice one knot shorter on axes 0 and 1 (on 256^3: 255 x 255
+# x 256); B13 also on PATH3, the C3 folds' lattice.
 DUAL3_CHECKS = {"256^3 n=2^22": (255, 255, 256), "258x130x136 n=2^22": (257, 129, 136)}
 # Phase 15: the sibling profiles' fits and the remaining 2-D x-update routes
 # on bench.py's data (n = 2^20, lambda = 0.05) and the mvtv data (316^2):
@@ -501,6 +508,11 @@ def compare_kernels(name, device, errs):
     check(e <= 1e-5, f"dual_update_2d {tag}: max err {e:.3e} <= 1e-5 x max(1, |ref|)")
     check(torch.allclose(st.double(), st_r.double(), rtol=1e-4, atol=0),
           f"dual_update_2d {tag}: stats {st.tolist()} vs {st_r.tolist()} (rtol 1e-4)")
+    # The last CTA adds the partials in a fixed order: a second run repeats
+    # bit for bit.
+    again = K.dual_update_2d(x_r, I["u"], kappa, sc, us, true_m)
+    check(all(torch.equal(p, q) for p, q in zip((*a, *un, st), (*again[0], *again[1], again[2]))),
+          f"dual_update_2d {tag}: a second run is bit-identical")
 
     args = (I["theta"], I["u"], I["alpha"], I["counts"], I["oty"], hv, eigs, I["lam"], rho,
             us, I["cbar"], sc)
@@ -782,9 +794,10 @@ def cube_inputs(name: str, device, warm_iters: int = 4) -> dict:
 
 def compare_tiled3(device, errs):
     """B12 (both compiled flag pairs, and with a true_m mask) on each
-    DUAL3_CHECKS lattice, B13 (fused and with b given) and B14 at 256^3,
-    against their plain versions on warm state of the tiled3 route; records
-    the largest absolute error per kernel in errs."""
+    DUAL3_CHECKS lattice, B13 (fused and with b given) there and on the C3
+    folds' 256 x 256 x 64, and B14 at 256^3, against their plain versions
+    on warm state of the tiled3 route; records the largest absolute error
+    per kernel in errs."""
     import torch
     from multivartv_tpu_torch.ops import kernels as K
     from multivartv_tpu_torch.solver import admm, xupdate
@@ -794,15 +807,16 @@ def compare_tiled3(device, errs):
         errs[kernel] = max(errs.get(kernel, 0.0), e)
         return max(rel_err(g, r) for g, r in zip(got, ref))
 
-    for name, tm_mask in DUAL3_CHECKS.items():
+    for name in (*DUAL3_CHECKS, PATH3):
         I = cube_inputs(name, device)
         ops, pr, s = I["ops"], I["problem"], I["s"]
         sc = ops.scales
         tag = f"{name} [{'x'.join(map(str, I['m']))}, {xupdate.spectral_layout(ops)} layout]"
         check(I["route"] == "tiled3", f"{tag}: the tiled3 route ({I['route']})")
         kappa = I["lam"] / s.rho
-        for want_adj, want_alpha, tm in ((True, False, None), (False, True, None),
-                                         (True, False, tm_mask)):
+        cases = (((True, False, None), (False, True, None), (True, False, DUAL3_CHECKS[name]))
+                 if name in DUAL3_CHECKS else ())
+        for want_adj, want_alpha, tm in cases:
             got = K.dual_update_tiled_3d(s.theta, s.u, kappa, sc, s.u_scale, tm, want_adj,
                                          want_alpha)
             ref = K.dual_update_tiled_3d_reference(s.theta, s.u, kappa, sc, s.u_scale, tm,
@@ -817,9 +831,6 @@ def compare_tiled3(device, errs):
             check(torch.allclose(got[2].double(), ref[2].double(), rtol=1e-4, atol=0),
                   f"{label}: stats {got[2].tolist()} vs {ref[2].tolist()} (rtol 1e-4)")
             del got, ref, lat
-        if name != "256^3 n=2^22":
-            del I, s
-            continue
         parts = (pr.oty, s.dta, s.u_scale, s.dtu)
         b = pr.oty + s.rho * (s.dta + s.u_scale * s.dtu)
         for label, bb, rp in (("fused rhs", None, parts), ("b given", b, None)):
@@ -830,6 +841,10 @@ def compare_tiled3(device, errs):
             e = note("gram_residual_tiled_3d", [r], [r_ref])
             check(e <= 1e-5, f"gram_residual_tiled_3d {tag} ({label}): max err {e:.3e} <= "
                   "1e-5 x max(1, |ref|)")
+            del r, r_ref
+        if name != "256^3 n=2^22":
+            del I, s, b, parts
+            continue
         # B14 on the refreshed alpha of the warm state (the tiled3 loop leaves
         # the state's own alpha at its pre-loop value).
         alpha = admm._refresh_alpha(ops, s, I["lam"]).alpha
@@ -838,7 +853,7 @@ def compare_tiled3(device, errs):
         torch.cuda.synchronize()
         e = note("rhs_tiled_3d", [bk], [b_ref])
         check(e <= 1e-5, f"rhs_tiled_3d {tag}: max err {e:.3e} <= 1e-5 x max(1, |ref|)")
-        del I, s, b, bk, b_ref, alpha
+        del I, s, b, bk, b_ref, alpha, parts
     torch.cuda.empty_cache()
 
 
@@ -941,12 +956,16 @@ def compare_slice(device, errs):
         check(e <= 1e-5, f"dual_update_2d {tag}: max err {e:.3e} <= 1e-5 x max(1, |ref|)")
         check(torch.allclose(st.double(), st_r.double(), rtol=1e-4, atol=0),
               f"dual_update_2d {tag}: stats {st.tolist()} vs {st_r.tolist()} (rtol 1e-4)")
+        dual2 = K.dual_update_2d(x_r, s.u, kappa, sc, s.u_scale)
+        check(all(torch.equal(p, q) for p, q in zip((*a, *un, st),
+                                                    (*dual2[0], *dual2[1], dual2[2]))),
+              f"dual_update_2d {tag}: a second run is bit-identical")
         # No float atomics: a second run repeats bit for bit.
         again = K.xupdate_pcg_2d(b_r, s.theta, pr.counts, mats, eigs, s.rho, cbar, sc, 3)
         first = K.xupdate_pcg_2d(b_r, s.theta, pr.counts, mats, eigs, s.rho, cbar, sc, 3)
         check(torch.equal(again[0], first[0]), f"xupdate_pcg_2d {tag}: a second run is "
               "bit-identical")
-        del I, s, b, b_r, x, x_r, again, first
+        del I, s, b, b_r, x, x_r, again, first, dual2
     torch.cuda.empty_cache()
 
 
@@ -1890,8 +1909,9 @@ def phase_timing_slice(device):
     1024^2 beside their plain versions and bounds, B6's dense products
     beside the same 12 products on cuBLAS and their share of B6's device
     time (torch.profiler), and the 1023^2 whole-route iteration (B2, B6,
-    B1) under the standalone C++ sibling's profile with its profile.
-    Returns {kernel: (ms, plain_ms, m)} at 1023^2 (B6) and 1024^2 (B7)."""
+    B1) under the standalone C++ sibling's profile with its profile, and
+    B1 and B2 at 1023^2 (time_call).  Returns {kernel: (ms, plain_ms, m)}
+    at 1023^2 (B6, B1) and 1024^2 (B7)."""
     import torch
     from multivartv_tpu_torch.ops import kernels as K
     from multivartv_tpu_torch.solver import admm
@@ -1934,6 +1954,17 @@ def phase_timing_slice(device):
                 log(f"  xupdate_pcg_2d {label}: the profiler saw no device time; the 12 products "
                     f"as bf16 torch.matmul (cuBLAS, a yardstick) {lib_ms:.4f} ms [{GPU_LINE}]")
         if label == SLICE_PATH:
+            # B1 and B2 where their launches are (the route's every
+            # iteration); B1's row of the kernels line is this one.
+            kappa = I["lam"] / s.rho
+            dual = (s.theta, s.u, kappa, sc, s.u_scale)
+            p1 = cuda_time_ms(lambda: K.dual_update_2d_reference(*dual), 10)
+            k_ms = time_call("dual_update_2d", label, lambda: K.dual_update_2d(*dual), m)
+            p2 = cuda_time_ms(lambda: K.dual_update_2d_reference(*dual), 10)
+            times["dual_update_2d"] = (k_ms, min(p1, p2), m)
+            log(f"  dual_update_2d {label}: plain {p1:.4f} / {p2:.4f} ms [{GPU_LINE}]")
+            time_call("rhs_2d", label,
+                      lambda: K.rhs_2d(s.alpha, s.u, pr.oty, s.rho, s.u_scale, sc), m)
             n_it = 10
             cfg, state0, lam = I["cfg"], I["state0"], I["lam"]
 
@@ -1951,7 +1982,8 @@ def phase_timing_slice(device):
 
 def phase_timing_cubes(device):
     """Phase 13: B12, B13 and B14 at 256^3 beside their plain versions and
-    bounds, the tiled3 iteration's time and profile, and B12 at 128^3.
+    bounds, the tiled3 iteration's time and profile, B13 at 256 x 256 x 64
+    (time_call there and at 256^3) and B12 at 128^3.
     Returns {kernel: (ms, plain_ms, m)} at 256^3."""
     import torch
     from multivartv_tpu_torch.ops import kernels as K
@@ -1991,6 +2023,7 @@ def phase_timing_cubes(device):
                 f"bound {b_ms:.4f} ms ({b_by}) [{GPU_LINE}]")
             if name.startswith("256"):
                 times[k] = (min(k1, k2), min(p1, p2), m)
+        time_call("gram_residual_tiled_3d", name, cases["gram_residual_tiled_3d"][0], m)
         n_it = 20
         state0 = I["state0"]
 
@@ -2004,6 +2037,18 @@ def phase_timing_cubes(device):
         profile_iterations(name, run, n_it, ms)
         del I, s, state0, cases, alpha
         torch.cuda.empty_cache()
+    # B13 on the C3 folds' lattice, where most of its launches are.
+    I = cube_inputs(PATH3, device)
+    pr, s, m = I["problem"], I["s"], I["m"]
+    gram = (None, s.theta, pr.counts, s.rho, I["ops"].scales)
+    parts = (pr.oty, s.dta, s.u_scale, s.dtu)
+    p1 = cuda_time_ms(lambda: K.gram_residual_tiled_3d_reference(*gram, rhs_parts=parts), 5)
+    time_call("gram_residual_tiled_3d", PATH3,
+              lambda: K.gram_residual_tiled_3d(*gram, rhs_parts=parts), m)
+    p2 = cuda_time_ms(lambda: K.gram_residual_tiled_3d_reference(*gram, rhs_parts=parts), 5)
+    log(f"  gram_residual_tiled_3d {PATH3}: plain {p1:.4f} / {p2:.4f} ms [{GPU_LINE}]")
+    del I, s, pr, gram, parts
+    torch.cuda.empty_cache()
     # B12 alone at 128^3, on the warm state of that lattice's route (the
     # no-kernel spectral3 route: below 2^22 knots no path launches B12).
     name = "128^3 n=2^21"
@@ -2137,7 +2182,7 @@ def _chain_group(key: str) -> str:
     if "memcpy" in k or "memset" in k:
         return "copies"
     if any(t in k for t in ("residual_kernel", "gram_matvec_dot", "cg_update", "spectral_scale",
-                            "dual_kernel", "rho_adapt", "copy_blocks")):
+                            "dual_tile_kernel", "rho_adapt", "copy_blocks")):
         return "stencil, CG and dual stages"
     return "wrapper passes (eager)"
 
@@ -2164,11 +2209,13 @@ def profile_chain(label: str, run, n_calls: int, iters: int, wall_ms: float, lib
         return
     parts = ", ".join(f"{g} {v:.4f}" for g, v in sorted(groups.items(), key=lambda kv: -kv[1]))
     prod = groups.get("products", 0.0)
+    lib_part = (f"device time {lib_dev:.4f} ms ({prod / lib_dev:.2f}x)" if lib_dev > 0
+                else "device time not measured (the profiler saw none)")
     log(f"  {label} profile, device ms per call: {parts}; busy {busy:.4f} of {wall_ms:.4f} ms "
         f"wall, idle share {max(0.0, 1 - busy / wall_ms):.3f}; {launches / n_calls / iters:.1f} "
         f"kernels per iteration; its products {prod:.4f} ms beside the same products as bf16 "
-        f"torch.bmm (cuBLAS, a yardstick): device time {lib_dev:.4f} ms ({prod / lib_dev:.2f}x), "
-        f"CUDA-event time {lib_ms:.4f} ms [{GPU_LINE}]")
+        f"torch.bmm (cuBLAS, a yardstick): {lib_part}, CUDA-event time {lib_ms:.4f} ms "
+        f"[{GPU_LINE}]")
 
 
 def phase_timing(device):
@@ -2213,6 +2260,7 @@ def phase_timing(device):
         times[name] = (min(k1, k2), min(p1, p2))
         log(f"  {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms "
             f"[{GPU_LINE}]")
+    time_call("dual_update_2d", "512^2", cases["dual_update_2d"][0], ops.m)
     # Where a B3 and a B4 call spend their device time, their launches and
     # their products beside the same products on cuBLAS.
     for name, n_precond, iters in (("xupdate_pcg_2d_packed", 3, 1), ("admm_iters_2d", 12, 4)):
@@ -2403,7 +2451,7 @@ def _profile_group(key: str) -> str:
     k = key.lower()
     if "dual3_march_kernel" in k:
         return "B12 dual_update_tiled_3d"
-    if "gram3_kernel" in k:
+    if "gram3_march_kernel" in k:
         return "B13 gram_residual_tiled_3d"
     if "fold_mma_kernel" in k:
         return "B3-B5 DCT products (dct_fold.cu)"
@@ -2413,12 +2461,11 @@ def _profile_group(key: str) -> str:
         return "B6 DCT products (dct_mma.cu)"
     if "pad_bf16_kernel" in k:
         return "B6 bf16 operand staging (dct_mma.cu)"
-    # Before "dual_kernel": B2's residual_kernel contains that name.
     if any(t in k for t in ("residual_kernel", "gram_matvec_dot", "cg_update", "spectral_scale")):
         return "B2 and the B3/B6 CG stages"
-    if "dual_kernel<true" in k:
+    if "dual_tile_kernel<true" in k:
         return "B1 dual_update_2d"
-    if "dual_kernel" in k:
+    if "dual_tile_kernel" in k:
         return "B8 dual_update_tiled_2d"
     if "gram_tiled_kernel<0" in k:
         return "B10 gram_matvec_tiled_2d"
@@ -2435,19 +2482,32 @@ def _profile_group(key: str) -> str:
     return "eager elementwise and reduction passes"
 
 
-def device_times(run) -> list:
-    """torch.profiler over run(): (device us, calls, name) per kernel."""
+def device_times(run, tries: int = 3) -> list:
+    """torch.profiler over run(): (device us, calls, name) per kernel, or []
+    when no trace saw device time.  Each trace runs run() once as a warm-up
+    step, whose events are dropped, and once more as its one recorded step:
+    late in a process that has profiled often, a trace can miss launches,
+    or all of them, so a trace that saw no device time is taken again, up
+    to `tries` times."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return [(float(getattr(e, "self_device_time_total", None)
-                   or getattr(e, "self_cuda_time_total", 0.0) or 0.0), e.count, e.key)
-            for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _step in range(2):
+                run()
+                torch.cuda.synchronize()
+                prof.step()
+        times = [(float(getattr(e, "self_device_time_total", None)
+                        or getattr(e, "self_cuda_time_total", 0.0) or 0.0), e.count, e.key)
+                 for e in prof.key_averages()
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")
+                 and not e.key.startswith("ProfilerStep")]  # the step's span, not a kernel
+        if sum(us for us, _, _ in times) > 0:
+            return times
+    return []
 
 
 def profile_iterations(label: str, run, n_iters: int, wall_ms: float) -> None:
@@ -2470,6 +2530,106 @@ def profile_iterations(label: str, run, n_iters: int, wall_ms: float) -> None:
         f"{wall_ms:.3f} ms wall, idle share {max(0.0, 1 - busy / wall_ms):.3f} [{GPU_LINE}]")
     for us, count, key in sorted(top, reverse=True)[:8]:
         log(f"    {us / 1e3 / n_iters:.4f} ms/it  x{count / n_iters:g}/it  {key}")
+
+
+def time_call(name: str, label: str, run, m, n: int = 20, **kw) -> float:
+    """One kernel call at its launch size: CUDA-event ms per call (two runs
+    of n), torch.profiler device ms and kernels per call, and host us per
+    call (the enqueue of n calls on an idle device, no synchronize inside);
+    printed beside the bound.  Returns the smaller CUDA-event time."""
+    import torch
+    k1, k2 = cuda_time_ms(run, n), cuda_time_ms(run, n)
+    times = device_times(lambda: [run() for _ in range(n)])
+    dev = sum(us for us, _, _ in times) / 1e3 / n
+    kpc = sum(count for _, count, _ in times) / n
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        run()
+    host_us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    b_ms, b_by = bound(name, m, **kw)
+    log(f"  {name} {label}: {k1:.4f} / {k2:.4f} ms per call (CUDA events), device "
+        f"{dev:.4f} ms in {kpc:.1f} kernels per call (torch.profiler), host {host_us:.1f} us "
+        f"per call, bound {b_ms:.4f} ms ({b_by}) [{GPU_LINE}]")
+    return min(k1, k2)
+
+
+def phase_launch_sizes(device):
+    """Phase 19 (only when listed): the redesigned kernels and their
+    neighbours at the sizes where the main paths launch them, with
+    time_call's four numbers each: B1 at 512^2 and 1023^2, B2 at 1023^2,
+    B4 at 512^2 (K = 4), B5 at 316^2 (B = 5, K = 4, the state's copies
+    included, as in phase 7), B8 at 2048^2, B9s's matvec mode on the
+    one-rank 1024^2 slab and B13 (fused) at 256^3 and 256 x 256 x 64.  It
+    calls only entry points whose arguments are unchanged since PR 8, so
+    the same file, copied into an older checkout's root, times that tree's
+    kernels in the same call (parent, change, change, parent)."""
+    import torch
+    from multivartv_tpu_torch.ops import kernels as K
+    from multivartv_tpu_torch.solver import admm
+
+    log(f"phase 19: kernels at their launch sizes on {GPU_LINE}")
+    I = path_inputs("512^2 n=2^20", device)
+    sc, m, us = I["ops"].scales, I["m"], I["u_scale"]
+    kappa = I["lam"] / I["rho"]
+    time_call("dual_update_2d", "512^2", lambda: K.dual_update_2d(I["theta"], I["u"], kappa,
+                                                                  sc, us), m)
+    ops = I["ops"]
+    chain = (I["theta"], I["u"], I["alpha"], I["counts"], I["oty"], ops.dct_halves_lp,
+             ops.gram_eigs_packed, I["lam"], I["rho"], us, I["cbar"], sc)
+    scratch = {}
+    time_call("admm_iters_2d", "512^2 K=4",
+              lambda: K.admm_iters_2d(*chain, k_iters=4, n_steps=3, scratch=scratch), m)
+    del I, chain, scratch
+    C = cv_inputs("316^2 n=1e5", device)
+    pr, c_ops = C["problems"], C["ops"]
+    b5 = (pr.counts, pr.oty, c_ops.dct_halves_lp, c_ops.gram_eigs_packed, C["lams"], C["rho"],
+          C["u_scale"], C["cbars"], c_ops.scales)
+    scratch = {}
+    time_call("admm_iters_2d_batched", "316^2 B=5 K=4",
+              lambda: K.admm_iters_2d_batched(
+                  C["theta"].clone(), tuple(w.clone() for w in C["u"]),
+                  tuple(x.clone() for x in C["alpha"]), *b5, k_iters=4, n_steps=3,
+                  scratch=scratch), C["m"], batch=5)
+    del C, b5, scratch
+    I = slice_inputs(SLICE_PATH, device)
+    pr, s, sc, m = I["problem"], I["s"], I["ops"].scales, I["m"]
+    kappa = I["lam"] / s.rho
+    time_call("dual_update_2d", "1023^2", lambda: K.dual_update_2d(s.theta, s.u, kappa, sc,
+                                                                   s.u_scale), m)
+    time_call("rhs_2d", "1023^2", lambda: K.rhs_2d(s.alpha, s.u, pr.oty, s.rho, s.u_scale, sc),
+              m)
+    del I, s, pr
+    I = tiled_inputs("2048^2 n=2^22", device)
+    s, sc = I["s"], I["ops"].scales
+    kappa = I["lam"] / s.rho
+    time_call("dual_update_tiled_2d", "2048^2",
+              lambda: K.dual_update_tiled_2d(s.theta, s.u, kappa, sc, s.u_scale, None, True,
+                                             False), I["m"])
+    del I, s
+    saved = admm.WHOLE_MAX_KNOTS
+    admm.WHOLE_MAX_KNOTS = SHARD_HALF[1][0] * SHARD_HALF[1][1] // 2
+    try:
+        I = tiled_inputs("2048^2 n=2^22", device, workload=SHARD_HALF)
+    finally:
+        admm.WHOLE_MAX_KNOTS = saved
+    s, m = I["s"], I["m"]
+    (top,), (bot,) = slab_halos((s.theta,), 0, m[0])
+    mv = (s.theta, top, bot, 0, m[0], I["problem"].counts, s.rho, I["ops"].scales)
+    time_call("gram_matvec_tiled_2d_shard", "1024^2 one-rank slab",
+              lambda: K.gram_matvec_tiled_2d_shard(*mv), m)
+    del I, s, mv
+    torch.cuda.empty_cache()
+    for name in ("256^3 n=2^22", PATH3):
+        I = cube_inputs(name, device)
+        pr, s = I["problem"], I["s"]
+        parts = (pr.oty, s.dta, s.u_scale, s.dtu)
+        time_call("gram_residual_tiled_3d", name.split()[0],
+                  lambda: K.gram_residual_tiled_3d(None, s.theta, pr.counts, s.rho,
+                                                   I["ops"].scales, rhs_parts=parts), I["m"])
+        del I, s, pr, parts
+        torch.cuda.empty_cache()
 
 
 # The LARGE lattices phase 10 times: the sizes of the tiled kernels' first
@@ -2891,8 +3051,9 @@ def phase_timing_shard(device):
     beside the whole-lattice kernels (B8, B9, B10, B2's) on the same total
     lattice: the warm 2048^2 state, on the
     main path's slab (one rank: the whole lattice, zero halos) and on one
-    of SHARD_SLABS slabs.  Returns {kernel: (ms, plain_ms, m)} at the main
-    path's slab."""
+    of SHARD_SLABS slabs; and the slab matvec on the one-rank 1024^2 slab
+    of SHARD_HALF (time_call).  Returns {kernel: (ms, plain_ms, m)} at the
+    main path's slab."""
     import torch
     from multivartv_tpu_torch.ops import kernels as K
     from multivartv_tpu_torch.solver import admm
@@ -2951,6 +3112,20 @@ def phase_timing_shard(device):
             if slabs == 1:
                 times[k] = (min(k1, k2), min(p1, p2), shape)
     del I, s, alpha
+    # The slab matvec on the folds = 2 fit's one-rank 1024^2 slab, where
+    # most of its launches are (the sharded PCG's).
+    saved = admm.WHOLE_MAX_KNOTS
+    admm.WHOLE_MAX_KNOTS = SHARD_HALF[1][0] * SHARD_HALF[1][1] // 2
+    try:
+        I = tiled_inputs("2048^2 n=2^22", device, workload=SHARD_HALF)
+    finally:
+        admm.WHOLE_MAX_KNOTS = saved
+    s, m = I["s"], I["m"]
+    (vt,), (vb,) = slab_halos((s.theta,), 0, m[0])
+    mv = (s.theta, vt, vb, 0, m[0], I["problem"].counts, s.rho, I["ops"].scales)
+    time_call("gram_matvec_tiled_2d_shard", "1024^2 one-rank slab",
+              lambda: K.gram_matvec_tiled_2d_shard(*mv), m)
+    del I, s, mv
     torch.cuda.empty_cache()
     return times
 
@@ -2994,7 +3169,8 @@ SOURCES = {
                            "multivartv_tpu/ops/pallas_kernels.py:1581"),
     "dual_struct": ("multivartv_tpu_torch/csrc/probe.cu", "scripts/probe_r5_dualstruct.py:79"),
 }
-# The lattices (and batch) at which phase 7 times the whole-lattice kernels.
+# The lattices (and batch) at which phase 7 times the whole-lattice kernels;
+# B1's row is its 1023^2 time (phase_timing_slice), where its launches are.
 TIMED_AT = {"dual_update_2d": ((512, 512), {}), "rhs_2d": ((512, 512), {}),
             "xupdate_pcg_2d_packed": ((512, 512), {}), "admm_iters_2d": ((512, 512), {}),
             "admm_iters_2d_batched": ((316, 316), {"batch": 5})}
@@ -3013,8 +3189,8 @@ def phase_mvtv_default(device):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,12,13,15,16,17",
-                    help="comma-separated phases to run (default: 1-10, 12, 13, 15-17; 11, 14 "
-                    "and 18 only when listed)")
+                    help="comma-separated phases to run (default: 1-10, 12, 13, 15-17; 11, 14, "
+                    "18 and 19 only when listed)")
     phases = {int(v) for v in ap.parse_args(argv).phases.split(",")}
     phase_device()
     import torch
@@ -3070,6 +3246,8 @@ def main(argv=None) -> int:
         phase_cubes_exact(device)
     if 18 in phases:
         phase_c3_tight(device)
+    if 19 in phases:
+        phase_launch_sizes(device)
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed:")
         for f in FAILURES:

@@ -10,9 +10,9 @@
 // (blockIdx.z = b, common.cuh):
 //   residual from (oty, alpha, u, theta)  (B2 folded into B3's r0)
 //   -> PCG x-update (xupdate.cu)           -> theta
-//   -> z/dual stage + Boyd sums (dual.cu)  -> alpha, u_new, stats
+//   -> z/dual stage + Boyd sums (dual.cu)  -> alpha, u_new, stats (one launch)
 //   -> rho_adapt (one thread per problem)  -> rho, u_scale, kappa
-// So K iterations of B problems cost the same ~33 launches per iteration as
+// So K iterations of B problems cost the same ~32 launches per iteration as
 // one problem.  That is the point of the design on this card: at 316^2 one
 // problem is 400 stencil blocks and a handful of DCT GEMM tiles, which
 // leaves most of the 132 SMs idle between launches; five CV folds in one
@@ -98,6 +98,7 @@ struct ChainArgs {
   float s_mix, s_ax1, s_ax0, tau, band, tau_shrink;
   int k_iters, n_steps, adapt, t0, t1;
   float *work, *partials, *scal;
+  unsigned* tickets;
   int B, m0, m1, device;
 };
 
@@ -126,9 +127,10 @@ int run_chain(const ChainArgs& a, cudaStream_t s) {
                                u_src[0], u_src[1], u_src[2], scal, sc, wb.r, L, bt, s));
     MVTV_CHECK(run_pcg(a.theta, a.theta, a.counts, tf, a.eigs, scal, sc, a.n_steps, wb,
                        a.partials, L, bt, s));
-    MVTV_CHECK(launch_dual(a.theta, u_src[0], u_src[1], u_src[2], scal, sc, a.t0, a.t1, a.a0,
-                           a.a1, a.a2, u_dst[0], u_dst[1], u_dst[2], a.partials, L, bt, s));
-    MVTV_CHECK(launch_finish(a.partials, nb, 5, scal + S_STATS, bt, s));
+    MVTV_CHECK(launch_dual(true, false, a.theta, u_src[0], u_src[1], u_src[2],
+                           scal + S_KAPPA, scal + S_USCALE, scal, sc, a.t0, a.t1, a.a0, a.a1,
+                           a.a2, u_dst[0], u_dst[1], u_dst[2], nullptr, nullptr, a.partials,
+                           a.tickets, L, bt, s));
     rho_adapt_kernel<<<dim3(1, 1, B), 1, 0, s>>>(scal, a.adapt, a.tau, a.tau_shrink, a.band, bt);
     MVTV_LAUNCHED();
   }
@@ -205,12 +207,13 @@ int launch_chain_graph(const ChainArgs& a, cudaStream_t s) {
 // m0, m1) floats: 6 x (B, m0, m1) lattices (u scratch x3, r, p, ap), then
 // the folded products' padded bf16 operands (dct_fold.cu); partials B rows
 // of 5 * (stencil blocks of one problem), scal B rows of S_CG + 2 (n_steps
-// + 1).  After the call row b of scal holds problem b's rho and u_scale
+// + 1), tickets B unsigneds that are 0 (the dual stage's last-CTA tickets,
+// left 0).  After the call row b of scal holds problem b's rho and u_scale
 // after its last iteration and that iteration's 6 statistics.  t0 < 0: no
 // true_m masks.  adapt, tau, tau_shrink and band: rho_adapt_kernel.  The
 // chain replays a captured graph where every argument repeats, so callers
-// keep work, partials, scal and their other inputs at the same addresses
-// across the calls of one solve.
+// keep work, partials, tickets, scal and their other inputs at the same
+// addresses across the calls of one solve.
 extern "C" long long mvtv_admm_iters_2d_batched_work(int B, int m0, int m1) {
   return mvtv::folded_work(6, B, m0, m1);
 }
@@ -221,8 +224,8 @@ extern "C" int mvtv_admm_iters_2d_batched(
     const void* te1, const void* to1, const float* eigs, const float* lam, const float* rho,
     const float* uscale, const float* cbar, const int* act, float s_mix, float s_ax1,
     float s_ax0, int k_iters, int n_steps, float tau, float band, float tau_shrink, int adapt,
-    int t0, int t1, float* work, float* partials, float* scal, int B, int m0, int m1,
-    void* stream) {
+    int t0, int t1, float* work, float* partials, unsigned* tickets, float* scal, int B, int m0,
+    int m1, void* stream) {
   using namespace mvtv;
   ChainArgs a;
   std::memset(&a, 0, sizeof a);
@@ -233,7 +236,7 @@ extern "C" int mvtv_admm_iters_2d_batched(
   a.s_mix = s_mix, a.s_ax1 = s_ax1, a.s_ax0 = s_ax0, a.tau = tau, a.band = band;
   a.tau_shrink = tau_shrink;
   a.k_iters = k_iters, a.n_steps = n_steps, a.adapt = adapt, a.t0 = t0, a.t1 = t1;
-  a.work = work, a.partials = partials, a.scal = scal;
+  a.work = work, a.partials = partials, a.tickets = tickets, a.scal = scal;
   a.B = B, a.m0 = m0, a.m1 = m1;
   MVTV_CHECK(int(cudaGetDevice(&a.device)));
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -13,7 +13,8 @@
 //     dots) live in a small device buffer ``scal`` that every kernel reads by
 //     pointer, so no launch depends on a host copy of a device value;
 //   * every reduction is two passes, per-block partials then a one-block
-//     finish in a fixed order: no float atomics, so a run repeats bit for bit;
+//     finish in a fixed order (a finish launch, or in the dual stage the
+//     last CTA to finish): no float atomics, so a run repeats bit for bit;
 //   * every stage kernel takes a batch of B problems as its third launch
 //     dimension (blockIdx.z = b, struct Batch): problem b owns the lattices
 //     at offset b * m0 * m1, counts and oty at b * cstride (0 when the
@@ -116,6 +117,19 @@ __device__ __forceinline__ float block_sum(float v) {
   return total;
 }
 
+// 4 bytes global -> shared, asynchronous: the stencil kernels' tiles and
+// halos (dual.cu, tiled3.cu), a group committed per stage and waited for
+// until at most N groups are still in flight.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async4_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async4_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // A row slab of a lattice cut into row slabs over ranks (B8s, B9s, B11s):
 // local row r is global row row_off + r of m0g.  Its rows -1 and L.m0 are
 // the neighbours' boundary rows, the halo rows (zeros at the global edges).
@@ -164,22 +178,20 @@ int launch_residual(ResidualMode mode, const float* b, const float* x, const flo
                     const float* u0, const float* u1, const float* u2, const float* scal,
                     Scales sc, float* out, Lat L, Batch bt, cudaStream_t s);
 
-// dual.cu: the z/dual stage of B1 (alpha, u_new, partials of 5 statistics);
-// t0 < 0 means no true-region masks.
-int launch_dual(const float* theta, const float* u0, const float* u1, const float* u2,
-                const float* scal, Scales sc, int t0, int t1, float* a0, float* a1, float* a2,
-                float* un0, float* un1, float* un2, float* partials, Lat L, Batch bt,
-                cudaStream_t s);
-
-// dual.cu: the same stage with B8's flags (tiled.cu): without want_alpha
-// a0..a2 may be null; with want_adjoints it also writes dta = D'alpha and
-// dtu = D'u_new.  Exactly one of the two flags is set (the pairs that a
-// route launches); any other pair returns cudaErrorInvalidValue.
-int launch_dual_flags(bool want_alpha, bool want_adjoints, const float* theta, const float* u0,
-                      const float* u1, const float* u2, const float* scal, Scales sc, int t0,
-                      int t1, float* a0, float* a1, float* a2, float* un0, float* un1,
-                      float* un2, float* dta, float* dtu, float* partials, Lat L, Batch bt,
-                      cudaStream_t s);
+// dual.cu: the z/dual stage of B1 in one launch: alpha, u_new, and the 5
+// statistics in scal[S_STATS ..] of each problem's row (the last CTA of a
+// problem sums the per-CTA partials, found by tickets[b], which must be 0
+// and is left 0).  kappa and uscale are read at the problem's row offset
+// (scal_offset) like scal.  t0 < 0 means no true-region masks.  Without
+// want_alpha a0..a2 may be null; with want_adjoints it also writes dta =
+// D'alpha and dtu = D'u_new (B8's flags, tiled.cu).  Exactly one of the
+// two flags is set (the pairs that a route launches); any other pair
+// returns cudaErrorInvalidValue.
+int launch_dual(bool want_alpha, bool want_adjoints, const float* theta, const float* u0,
+                const float* u1, const float* u2, const float* kappa, const float* uscale,
+                float* scal, Scales sc, int t0, int t1, float* a0, float* a1, float* a2,
+                float* un0, float* un1, float* un2, float* dta, float* dtu, float* partials,
+                unsigned* tickets, Lat L, Batch bt, cudaStream_t s);
 
 // xupdate.cu: PCG of B3 from an already formed residual r (in work[0]).
 struct PcgBuffers {

@@ -9,20 +9,37 @@
 // |D'r|^2 and |D'u_new|^2.
 //
 // Bound on the H100: device-memory bandwidth: 4 lattices read (theta, 3 u),
-// 6 written: 40 bytes per element.  The TPU kernel keeps r and u_new in VMEM
-// for the adjoint sums; here a thread cannot see its neighbours' registers,
-// so each thread recomputes the pointwise stage at the three upstream
-// neighbours (i-1, j), (i, j-1), (i-1, j-1) that D'r and D'u_new read.  That
-// costs arithmetic (4x a cheap pointwise stage) and cached reads, and saves
-// writing r and reading r and u_new back: one pass instead of three.  u_new
-// must not alias u (neighbours read the old u).  One launch covers a batch
-// of problems (blockIdx.z), B5's CV folds among them.
+// 6 written: 40 bytes per element.  dual_tile_kernel does the whole stage
+// in one launch.  A CTA walks a column strip of 32 x 8 tiles, one thread
+// per knot of a tile (dual_steps tiles, so that about 256 CTAs share the
+// card).  For each tile it copies theta with a one-knot halo on every side
+// (34 x 10, wrapped as jnp.roll wraps) and u at the tile and its upstream
+// halo (33 x 9) into shared memory with cp.async, the next tile's copies
+// in flight during this tile's work.  It computes the pointwise stage
+// (dual_point: D theta, the prox, r, u_new) once at each knot (its thread)
+// and once at each of the 41 points of the upstream halo (row i0 - 1 and
+// column j0 - 1, the first 41 threads), and keeps r and u_new (and alpha,
+// for the adjoint carry) of the 33 x 9 points in shared memory.  D'r and
+// D'u_new at a knot come from its own values (registers) and its three
+// upstream neighbours' (shared memory), as the TPU kernel keeps r and
+// u_new in VMEM: each stage once, each value read once plus the halo (41
+// of 297 stage points, 84 of 340 theta points, most of them L2 hits).
+// u_new must not alias u (the halo reads the old u).  The five sums: per
+// thread over its tiles, then per warp by shuffles, then once per CTA into
+// five partials; the CTA that takes the last ticket (an atomic counter per
+// problem, after __threadfence) sums every CTA's partials in
+// launch_finish's fixed order (reduce.cu: thread t adds CTAs t, t + 256,
+// ..., then the CTA sums its threads) into scal[S_STATS ..] and sets the
+// ticket back to 0, so a rerun and a graph replay find it 0.  No float
+// atomics: a second run repeats bit for bit.  kappa and u_scale are read
+// through their pointers: no set-up launch.  One launch covers a batch of
+// problems (blockIdx.z), B5's CV folds among them; a frozen problem
+// (Batch::act) writes nothing, its statistics included.
 //
-// Two template flags make the same stage kernel B8's (tiled.cu, the
-// large-lattice route): kWantAdjoints also writes dta = D'alpha (the same
-// upstream-neighbour recompute applied to alpha) and dtu = D'u_new (already
-// computed for the last statistic), and !kWantAlpha skips the three alpha
-// stores, which nothing reads on that route.  B1 is <true, false>.
+// Two template flags make the same kernel B8's (tiled.cu, the large-lattice
+// route): kWantAdjoints also writes dta = D'alpha and dtu = D'u_new, and
+// !kWantAlpha skips the three alpha stores, which nothing reads on that
+// route.  B1 and B4/B5's chain are <true, false>.
 //
 // dual_shard_kernel is B8s (pallas_kernels.py:dual_update_tiled_2d_shard,
 // _tiled_dual_kernel with sharded=True): the same stage on one rank's row
@@ -31,9 +48,9 @@
 // theta from the bottom one (the next rank's first row); every mask uses
 // the global row, so the rows above global row 0 and the global last row
 // are masked as the TPU kernel masks them, and the true_m masks are global.
-// The adjoints at local row 0 need alpha, r and u_new at row -1: the thread
-// recomputes the prox there from the halo rows, as every thread recomputes
-// it at its upstream neighbours.  The five sums are this slab's partial
+// It keeps the first design: one thread per knot, recomputing the prox at
+// its three upstream neighbours (at local row 0 from the halo rows), five
+// block sums and a finish pass.  The five sums are this slab's partial
 // sums; the caller all-reduces them over the ranks.  Bound: as B8, plus
 // the five halo rows read (theta above and below, u above).
 #include "common.cuh"
@@ -44,21 +61,15 @@ struct DualPt {
   float dt[3], a[3], r[3], un[3];
 };
 
-// The pointwise stage at column c of a row from theta's rows th_r (this one)
-// and th_n (the next) and u's row: e0 masks the axis-0 difference (the
-// lattice's last row), valid zeroes the ax1 block and u on rows above a
-// slab's global row 0 (1 elsewhere), g is the row of the true_m masks.
-__device__ __forceinline__ DualPt dual_rows(const float* __restrict__ th_r,
-                                            const float* __restrict__ th_n,
-                                            const float* __restrict__ u0r,
-                                            const float* __restrict__ u1r,
-                                            const float* __restrict__ u2r, int c, int m1,
-                                            float e0, float valid, int g, Scales sc,
-                                            float kappa, float us, int t0, int t1) {
-  const int cp = inc(c, m1);
-  const float th00 = th_r[c], th01 = th_r[cp];
-  const float th10 = th_n[c], th11 = th_n[cp];
-  const float e1 = edge(c, m1);
+// The pointwise stage at a point from theta there (th00), one column on
+// (th01), one row on (th10) and both (th11), and u there: e0 and e1 mask
+// the axis-0 and axis-1 differences (the lattice's last row and column),
+// valid zeroes the ax1 block and u on rows above a slab's global row 0 (1
+// elsewhere), (g, c) is the point's row and column for the true_m masks.
+__device__ __forceinline__ DualPt dual_point(float th00, float th01, float th10, float th11,
+                                             float u0, float u1, float u2, int c, float e0,
+                                             float e1, float valid, int g, Scales sc,
+                                             float kappa, float us, int t0, int t1) {
   const float d0 = (th10 - th00) * e0;   // fwd0 at (r, c)
   const float d0p = (th11 - th01) * e0;  // fwd0 at (r, c+1)
   DualPt q;
@@ -73,7 +84,7 @@ __device__ __forceinline__ DualPt dual_rows(const float* __restrict__ th_r,
     k[1] = kappa * (rB * cA);
     k[2] = kappa * (rA * cB);
   }
-  const float ue[3] = {us * u0r[c] * valid, us * u1r[c] * valid, us * u2r[c] * valid};
+  const float ue[3] = {us * u0 * valid, us * u1 * valid, us * u2 * valid};
 #pragma unroll
   for (int b = 0; b < 3; ++b) {
     q.a[b] = soft(q.dt[b] - ue[b], k[b]);
@@ -83,15 +94,18 @@ __device__ __forceinline__ DualPt dual_rows(const float* __restrict__ th_r,
   return q;
 }
 
-// dual_rows at (r, c) of a whole lattice (circular neighbours).
-__device__ __forceinline__ DualPt dual_at(const float* __restrict__ th,
-                                          const float* __restrict__ u0,
-                                          const float* __restrict__ u1,
-                                          const float* __restrict__ u2, int r, int c, Lat L,
-                                          Scales sc, float kappa, float us, int t0, int t1) {
-  const size_t o = size_t(r) * L.m1;
-  return dual_rows(th + o, th + size_t(inc(r, L.m0)) * L.m1, u0 + o, u1 + o, u2 + o, c, L.m1,
-                   edge(r, L.m0), 1.f, r, sc, kappa, us, t0, t1);
+// dual_point at column c of a row from theta's rows th_r (this one) and
+// th_n (the next) and u's row; e0, valid and g as dual_point's.
+__device__ __forceinline__ DualPt dual_rows(const float* __restrict__ th_r,
+                                            const float* __restrict__ th_n,
+                                            const float* __restrict__ u0r,
+                                            const float* __restrict__ u1r,
+                                            const float* __restrict__ u2r, int c, int m1,
+                                            float e0, float valid, int g, Scales sc,
+                                            float kappa, float us, int t0, int t1) {
+  const int cp = inc(c, m1);
+  return dual_point(th_r[c], th_r[cp], th_n[c], th_n[cp], u0r[c], u1r[c], u2r[c], c, e0,
+                    edge(c, m1), valid, g, sc, kappa, us, t0, t1);
 }
 
 // The outputs and the five sums at the element with flat index oc (global
@@ -144,7 +158,7 @@ __device__ __forceinline__ void dual_store(const DualPt& p00, const DualPt& pm0,
   }
 }
 
-// The block's five partial sums, one row per statistic.
+// The block's five partial sums, one row per statistic (B8s).
 __device__ __forceinline__ void store_partials(const float st[5], float* __restrict__ partials) {
   const int nblocks = gridDim.x * gridDim.y;
   const int blk = blockIdx.y * gridDim.x + blockIdx.x;
@@ -155,37 +169,162 @@ __device__ __forceinline__ void store_partials(const float st[5], float* __restr
   }
 }
 
+// dual_tile_kernel's tile: TX x TY knots; stage points (the tile and its
+// upstream halo) kSH rows of kSW, point (a, c) at global (i0 - 1 + a,
+// j0 - 1 + c); theta points one more row and column on the far side.
+constexpr int kSW = TX + 1, kSH = TY + 1, kSPts = kSW * kSH;
+constexpr int kTW = TX + 2, kTPts = kTW * (TY + 2);
+constexpr int kWarps = kThreads / 32;
+
+// i in [-m, 2m) wrapped into [0, m), as jnp.roll wraps.
+__device__ __forceinline__ int wrap1(int i, int m) { return i < 0 ? i + m : (i >= m ? i - m : i); }
+
+// The sums x[0..4] over the CTA's threads in block_sum's fixed order (warp
+// shuffles, then the warps in order), valid in thread 0; ws is shared
+// scratch that no thread still reads.
+__device__ __forceinline__ void cta_sum5(float (&x)[5], float (*ws)[5], int tid) {
+#pragma unroll
+  for (int v = 0; v < 5; ++v)
+    for (int off = 16; off > 0; off >>= 1) x[v] += __shfl_down_sync(0xffffffffu, x[v], off);
+  if ((tid & 31) == 0)
+#pragma unroll
+    for (int v = 0; v < 5; ++v) ws[tid >> 5][v] = x[v];
+  __syncthreads();
+  if (tid == 0)
+#pragma unroll
+    for (int v = 0; v < 5; ++v) {
+      x[v] = 0.f;
+      for (int w = 0; w < kWarps; ++w) x[v] += ws[w][v];
+    }
+}
+
 template <bool kWantAlpha, bool kWantAdjoints>
 __global__ void __launch_bounds__(kThreads)
-dual_kernel(const float* __restrict__ theta, const float* __restrict__ u0,
-            const float* __restrict__ u1, const float* __restrict__ u2,
-            const float* __restrict__ scal, Scales sc, int t0, int t1, float* __restrict__ a0,
-            float* __restrict__ a1, float* __restrict__ a2, float* __restrict__ un0,
-            float* __restrict__ un1, float* __restrict__ un2, float* __restrict__ dta,
-            float* __restrict__ dtu, float* __restrict__ partials, Lat L, Batch bt) {
+dual_tile_kernel(const float* __restrict__ theta, const float* __restrict__ u0,
+                 const float* __restrict__ u1, const float* __restrict__ u2,
+                 const float* kappa_p, const float* us_p, float* scal, Scales sc, int t0,
+                 int t1, float* __restrict__ a0, float* __restrict__ a1, float* __restrict__ a2,
+                 float* __restrict__ un0, float* __restrict__ un1, float* __restrict__ un2,
+                 float* __restrict__ dta, float* __restrict__ dtu, float* partials,
+                 unsigned* tickets, int steps, Lat L, Batch bt) {
+  constexpr int NV = kWantAdjoints ? 9 : 6;  // r, u_new (and alpha) of the 3 blocks
+  __shared__ float th_s[2][kTPts];           // theta's tile and halo, a ring of two tiles
+  __shared__ float u_s[2][3][kSPts];         // u at the stage points, likewise
+  __shared__ float sv_s[NV][kSPts];
+  __shared__ float ws[kWarps][5];
+  __shared__ bool last;
   if (frozen(bt)) return;
   const size_t off = lat_offset(L);
+  const float* const uk[3] = {u0 + off, u1 + off, u2 + off};
   theta += off;
-  u0 += off;
-  u1 += off;
-  u2 += off;
-  scal += scal_offset(bt);
-  partials += part_offset(bt);
-  const int j = blockIdx.x * TX + threadIdx.x;
-  const int i = blockIdx.y * TY + threadIdx.y;
+  const int tid = threadIdx.y * TX + threadIdx.x;
+  const int j0 = blockIdx.x * TX;
+  const int r_first = blockIdx.y * steps, r_end = min(r_first + steps, (L.m0 + TY - 1) / TY);
+  const float kappa = kappa_p[scal_offset(bt)], us = us_p[scal_offset(bt)];
+  // Tile row r (knot rows r TY ..) into ring slot r % 2: theta's points
+  // and u at the stage points; points past the lattice's end are never
+  // read and not copied.
+  auto load = [&](int r) {
+    const int i0 = r * TY, slot = r & 1;
+    for (int idx = tid; idx < kTPts; idx += kThreads) {
+      const int a = idx / kTW, c = idx % kTW;
+      if (a <= L.m0 - i0 + 1 && c <= L.m1 - j0 + 1)
+        cp_async4(&th_s[slot][idx],
+                  theta + size_t(wrap1(i0 - 1 + a, L.m0)) * L.m1 + wrap1(j0 - 1 + c, L.m1));
+    }
+    for (int idx = tid; idx < kSPts; idx += kThreads) {
+      const int a = idx / kSW, c = idx % kSW;
+      if (a <= L.m0 - i0 && c <= L.m1 - j0) {
+        const size_t g = size_t(wrap1(i0 - 1 + a, L.m0)) * L.m1 + wrap1(j0 - 1 + c, L.m1);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) cp_async4(&u_s[slot][k][idx], uk[k] + g);
+      }
+    }
+  };
+  // This thread's knot (a, c) = (ty + 1, tx + 1) of a tile, and its halo
+  // point: the first kSW threads take row i0 - 1, the next TY column j0 - 1.
+  const int ha = tid < kSW ? 0 : tid - kSW + 1, hc = tid < kSW ? tid : 0;
+  const int j = j0 + threadIdx.x, hcol = wrap1(j0 - 1 + hc, L.m1);
   float st[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  if (i < L.m0 && j < L.m1) {
-    const float kappa = scal[S_KAPPA], us = scal[S_USCALE];
-    const int im = dec(i, L.m0), jm = dec(j, L.m1);
-    const DualPt p00 = dual_at(theta, u0, u1, u2, i, j, L, sc, kappa, us, t0, t1);
-    const DualPt pm0 = dual_at(theta, u0, u1, u2, im, j, L, sc, kappa, us, t0, t1);
-    const DualPt p0m = dual_at(theta, u0, u1, u2, i, jm, L, sc, kappa, us, t0, t1);
-    const DualPt pmm = dual_at(theta, u0, u1, u2, im, jm, L, sc, kappa, us, t0, t1);
-    dual_store<kWantAlpha, kWantAdjoints>(p00, pm0, p0m, pmm, off + size_t(i) * L.m1 + j, i,
-                                          j, t0, t1, sc, a0, a1, a2, un0, un1, un2, dta, dtu,
-                                          st);
+  load(r_first);
+  cp_async4_commit();
+  for (int r = r_first; r < r_end; ++r) {
+    // The next tile's reads, in flight during this tile's work.
+    if (r + 1 < r_end) load(r + 1);
+    cp_async4_commit();
+    cp_async4_wait<1>();
+    __syncthreads();
+    const int i0 = r * TY, slot = r & 1, i = i0 + threadIdx.y;
+    const bool own = i < L.m0 && j < L.m1;
+    const bool halo = tid < kSW + TY && i0 - 1 + ha < L.m0 && j0 - 1 + hc < L.m1;
+    // The stage at point (a, c), global (row, col); its r, u_new (and
+    // alpha) go to shared memory.
+    auto stage = [&](int a, int c, int row, int col) {
+      const float* tq = &th_s[slot][a * kTW + c];
+      const int pt = a * kSW + c;
+      const DualPt q = dual_point(tq[0], tq[1], tq[kTW], tq[kTW + 1], u_s[slot][0][pt],
+                                  u_s[slot][1][pt], u_s[slot][2][pt], col, edge(row, L.m0),
+                                  edge(col, L.m1), 1.f, row, sc, kappa, us, t0, t1);
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        sv_s[b][pt] = q.r[b];
+        sv_s[3 + b][pt] = q.un[b];
+        if (kWantAdjoints) sv_s[NV - 3 + b][pt] = q.a[b];
+      }
+      return q;
+    };
+    DualPt p00;
+    if (own) p00 = stage(threadIdx.y + 1, threadIdx.x + 1, i, j);
+    if (halo) stage(ha, hc, wrap1(i0 - 1 + ha, L.m0), hcol);
+    __syncthreads();
+    if (own) {
+      const int pt = (threadIdx.y + 1) * kSW + threadIdx.x + 1;
+      auto at = [&](int q) {
+        DualPt p;
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+          p.r[b] = sv_s[b][q];
+          p.un[b] = sv_s[3 + b][q];
+          p.a[b] = kWantAdjoints ? sv_s[NV - 3 + b][q] : 0.f;
+        }
+        return p;
+      };
+      float sk[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+      dual_store<kWantAlpha, kWantAdjoints>(p00, at(pt - kSW), at(pt - 1), at(pt - kSW - 1),
+                                            off + size_t(i) * L.m1 + j, i, j, t0, t1, sc, a0,
+                                            a1, a2, un0, un1, un2, dta, dtu, sk);
+#pragma unroll
+      for (int v = 0; v < 5; ++v) st[v] += sk[v];
+    }
   }
-  store_partials(st, partials);
+  // This CTA's five sums; the CTA that takes the problem's last ticket adds
+  // every CTA's.
+  cta_sum5(st, ws, tid);
+  const int nb = gridDim.x * gridDim.y;
+  partials += part_offset(bt);
+  if (tid == 0) {
+    const int blk = blockIdx.y * gridDim.x + blockIdx.x;
+#pragma unroll
+    for (int v = 0; v < 5; ++v) partials[v * nb + blk] = st[v];
+    __threadfence();
+    last = atomicAdd(&tickets[blockIdx.z], 1u) == unsigned(nb - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float tot[5];
+#pragma unroll
+  for (int v = 0; v < 5; ++v) {
+    tot[v] = 0.f;
+    for (int k = tid; k < nb; k += kThreads) tot[v] += __ldcg(partials + v * nb + k);
+  }
+  cta_sum5(tot, ws, tid);
+  if (tid == 0) {
+    float* stats = scal + scal_offset(bt) + S_STATS;
+#pragma unroll
+    for (int v = 0; v < 5; ++v) stats[v] = tot[v];
+    tickets[blockIdx.z] = 0u;
+  }
 }
 
 // B8s; the halo rows: theta's above and below the slab, u's above it.
@@ -227,15 +366,30 @@ dual_shard_kernel(const float* __restrict__ theta, const float* __restrict__ u0,
   store_partials(st, partials);
 }
 
-int launch_dual_flags(bool want_alpha, bool want_adjoints, const float* theta, const float* u0,
-                      const float* u1, const float* u2, const float* scal, Scales sc, int t0,
-                      int t1, float* a0, float* a1, float* a2, float* un0, float* un1,
-                      float* un2, float* dta, float* dtu, float* partials, Lat L, Batch bt,
-                      cudaStream_t s) {
-  const dim3 grid = stencil_grid(L, bt.B), block(TX, TY);
-#define MVTV_DUAL(WA, WD)                                                                     \
-  dual_kernel<WA, WD><<<grid, block, 0, s>>>(theta, u0, u1, u2, scal, sc, t0, t1, a0, a1, a2, \
-                                             un0, un1, un2, dta, dtu, partials, L, bt)
+// Tiles per CTA: about 256 CTAs per problem (two per SM), at most
+// kDualSteps tiles each; fewer, longer marches measured faster than one
+// tile per CTA at 512^2 to 2048^2 (fewer partials, each tile's copies
+// hidden behind the previous tile's work).  It depends on the lattice
+// alone, never on the batch, so a problem's sums run in the same order in
+// a batch of any size.
+constexpr int kDualSteps = 8;
+inline int dual_steps(Lat L) {
+  const int tiles = stencil_blocks(L);
+  return tiles < 256 ? 1 : (tiles / 256 < kDualSteps ? tiles / 256 : kDualSteps);
+}
+
+int launch_dual(bool want_alpha, bool want_adjoints, const float* theta, const float* u0,
+                const float* u1, const float* u2, const float* kappa, const float* uscale,
+                float* scal, Scales sc, int t0, int t1, float* a0, float* a1, float* a2,
+                float* un0, float* un1, float* un2, float* dta, float* dtu, float* partials,
+                unsigned* tickets, Lat L, Batch bt, cudaStream_t s) {
+  const int steps = dual_steps(L);
+  const dim3 grid((L.m1 + TX - 1) / TX, ((L.m0 + TY - 1) / TY + steps - 1) / steps, bt.B);
+  const dim3 block(TX, TY);
+#define MVTV_DUAL(WA, WD)                                                                   \
+  dual_tile_kernel<WA, WD><<<grid, block, 0, s>>>(theta, u0, u1, u2, kappa, uscale, scal, sc, \
+                                                  t0, t1, a0, a1, a2, un0, un1, un2, dta,     \
+                                                  dtu, partials, tickets, steps, L, bt)
   // Only the pairs a route launches are compiled: B1's (alpha, no carries)
   // and the tiled ADMM loop's (carries, no alpha).
   if (want_alpha == want_adjoints) return int(cudaErrorInvalidValue);
@@ -248,32 +402,25 @@ int launch_dual_flags(bool want_alpha, bool want_adjoints, const float* theta, c
   return 0;
 }
 
-int launch_dual(const float* theta, const float* u0, const float* u1, const float* u2,
-                const float* scal, Scales sc, int t0, int t1, float* a0, float* a1, float* a2,
-                float* un0, float* un1, float* un2, float* partials, Lat L, Batch bt,
-                cudaStream_t s) {
-  return launch_dual_flags(true, false, theta, u0, u1, u2, scal, sc, t0, t1, a0, a1, a2, un0,
-                           un1, un2, nullptr, nullptr, partials, L, bt, s);
-}
-
 }  // namespace mvtv
 
 // B1 entry point.  alpha_out and u_out hold 3 lattices each; the 5
-// statistics land in scal[S_STATS .. S_STATS + 4].
+// statistics land in scal[S_STATS .. S_STATS + 4]; partials holds 5 floats
+// per 32 x 8 tile; tickets points to one unsigned that is 0, and is 0 again
+// when the launch ends.  One launch.
 extern "C" int mvtv_dual_update_2d(const float* theta, const float* u0, const float* u1,
                                    const float* u2, const float* kappa, const float* uscale,
                                    float s_mix, float s_ax1, float s_ax0, int t0, int t1,
-                                   float* alpha_out, float* u_out, float* partials, float* scal,
-                                   int m0, int m1, void* stream) {
+                                   float* alpha_out, float* u_out, float* partials,
+                                   unsigned* tickets, float* scal, int m0, int m1,
+                                   void* stream) {
   using namespace mvtv;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Lat L{m0, m1};
   const size_t n = size_t(m0) * m1;
-  MVTV_CHECK(launch_init_scalars(scal, nullptr, nullptr, uscale, nullptr, kappa, kOne, s));
-  MVTV_CHECK(launch_dual(theta, u0, u1, u2, scal, Scales{s_mix, s_ax1, s_ax0}, t0, t1,
-                         alpha_out, alpha_out + n, alpha_out + 2 * n, u_out, u_out + n,
-                         u_out + 2 * n, partials, L, kOne, s));
-  MVTV_CHECK(launch_finish(partials, stencil_blocks(L), 5, scal + S_STATS, kOne, s));
+  MVTV_CHECK(launch_dual(true, false, theta, u0, u1, u2, kappa, uscale, scal,
+                         Scales{s_mix, s_ax1, s_ax0}, t0, t1, alpha_out, alpha_out + n,
+                         alpha_out + 2 * n, u_out, u_out + n, u_out + 2 * n, nullptr, nullptr,
+                         partials, tickets, Lat{m0, m1}, kOne,
+                         static_cast<cudaStream_t>(stream)));
   return int(cudaGetLastError());
 }
 

@@ -21,20 +21,22 @@
 // The TPU kernels stream row panels of T <= 512 rows with 8-row halos
 // through VMEM (double-buffered manual DMA, _halo_copies/_halo_pingpong)
 // because a 2048^2 lattice does not fit VMEM.  None of that carries over:
-// here one thread per knot reads its 3x3 neighbourhood straight from
-// device memory (neighbouring threads share the lines in L1/L2), as B1 and
-// B2 do, so the "tiled" kernels are the whole-lattice kernels launched on a
-// larger grid.  What the halo code taught stays: every value outside the
-// lattice is an explicit 0 under the padded-block convention (the edge()
-// masks of stencil.cuh), so a wrapped neighbour never leaks in.
+// B8 is B1's kernel (dual.cu: a march of 32 x 8 tiles, each with its halo
+// in shared memory, each stage once, one launch), and B9 and B10 run one
+// thread per knot reading its 3x3 neighbourhood straight from device
+// memory (neighbouring threads share the lines in L1/L2), as B2 does, so
+// the "tiled" kernels are the whole-lattice kernels launched on a larger
+// grid.  What the halo code taught stays: every value outside the lattice
+// is an explicit 0 under the padded-block convention (the edge() masks of
+// stencil.cuh), so a wrapped neighbour never leaks in.
 //
 // Bound on the H100: device-memory bandwidth, one pass each.  B8 with alpha
 // skipped reads theta and 3 u and writes 3 u_new, dta and dtu: 36 bytes per
-// knot (plus the five per-block partial sums and their finish pass).  B9 in
-// fused mode reads v, counts, oty, dta and dtu and writes r0: 24 bytes per
-// knot.  B10 reads v and counts and writes one lattice: 12 bytes per knot.
-// The scalars (kappa, rho, u_scale) stay on the device.  A simple first
-// version: no shared-memory tiling of the neighbourhood yet.
+// knot (plus the five per-CTA partial sums, which its last CTA adds up).
+// B9 in fused mode reads v, counts, oty, dta and dtu and writes r0: 24
+// bytes per knot.  B10 reads v and counts and writes one lattice: 12 bytes
+// per knot.  The scalars (kappa, rho, u_scale) stay on the device.  B9 and
+// B10 have no shared-memory tiling of the neighbourhood yet.
 #include "stencil.cuh"
 
 namespace mvtv {
@@ -102,28 +104,27 @@ int launch_gram(int mode, const float* v, const float* v_top, const float* v_bot
 
 }  // namespace mvtv
 
-// B8 entry point: the dual stage of B1 with B8's flags.  alpha_out (3
-// lattices) is read only with want_alpha, dta/dtu only with want_adjoints;
-// the 5 statistics land in scal[S_STATS .. S_STATS + 4].
+// B8 entry point: the dual stage of B1 with B8's flags, one launch.
+// alpha_out (3 lattices) is read only with want_alpha, dta/dtu only with
+// want_adjoints; the 5 statistics land in scal[S_STATS .. S_STATS + 4];
+// partials and tickets as mvtv_dual_update_2d's.
 extern "C" int mvtv_dual_update_tiled_2d(const float* theta, const float* u0, const float* u1,
                                          const float* u2, const float* kappa,
                                          const float* uscale, float s_mix, float s_ax1,
                                          float s_ax0, int t0, int t1, int want_alpha,
                                          int want_adjoints, float* alpha_out, float* u_out,
-                                         float* dta, float* dtu, float* partials, float* scal,
-                                         int m0, int m1, void* stream) {
+                                         float* dta, float* dtu, float* partials,
+                                         unsigned* tickets, float* scal, int m0, int m1,
+                                         void* stream) {
   using namespace mvtv;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Lat L{m0, m1};
   const size_t n = size_t(m0) * m1;
   float* a[3] = {nullptr, nullptr, nullptr};
   if (want_alpha)
     for (int k = 0; k < 3; ++k) a[k] = alpha_out + k * n;
-  MVTV_CHECK(launch_init_scalars(scal, nullptr, nullptr, uscale, nullptr, kappa, kOne, s));
-  MVTV_CHECK(launch_dual_flags(want_alpha != 0, want_adjoints != 0, theta, u0, u1, u2, scal,
-                               Scales{s_mix, s_ax1, s_ax0}, t0, t1, a[0], a[1], a[2], u_out,
-                               u_out + n, u_out + 2 * n, dta, dtu, partials, L, kOne, s));
-  MVTV_CHECK(launch_finish(partials, stencil_blocks(L), 5, scal + S_STATS, kOne, s));
+  MVTV_CHECK(launch_dual(want_alpha != 0, want_adjoints != 0, theta, u0, u1, u2, kappa, uscale,
+                         scal, Scales{s_mix, s_ax1, s_ax0}, t0, t1, a[0], a[1], a[2], u_out,
+                         u_out + n, u_out + 2 * n, dta, dtu, partials, tickets, Lat{m0, m1},
+                         kOne, static_cast<cudaStream_t>(stream)));
   return int(cudaGetLastError());
 }
 

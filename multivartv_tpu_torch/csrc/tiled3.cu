@@ -16,25 +16,31 @@
 //
 // The TPU kernels view the lattice as (m0 m1, m2) rows and stream row
 // panels with an (m1 + 8)-row halo through VMEM, because 256^3 does not fit
-// it.  None of that carries over.  B13 and B14 run one thread per knot, the
-// knots in C order (m2 fastest, so neighbouring threads read neighbouring
-// addresses), each thread reading its 3x3x3 neighbourhood from L1/L2.
-// B12 marches planes: a CTA owns an 8 x 64 tile of the (x1, x2) plane and
-// 32 planes of axis 0, and computes each block's stage (D_b theta, the
-// prox, the dual ascent) once per point of the tile and its one-knot low
-// halo, plane after plane; the adjoint of block b at knot x needs the
-// block's values at the lower neighbours x - e, e <= b: the stage thread
-// takes its axis-0 step from its own values one plane below (registers)
-// and the knots read the rest from one plane of r, u_new (and alpha) in
-// shared memory (~90 KB with the adjoint carries, ~73 KB without).  theta and u stream in with
-// cp.async one plane ahead, so each value is read once, plus the halo: 66 x
-// 10 theta and 65 x 9 u points per 64 x 8 knots and one plane in 32 below
-// the chunk, about 16 % more reads than the unique bytes.  Neighbour indices
-// wrap as jnp.roll does, along every axis and at the plane below a chunk
-// that starts at 0: every halo row is a loaded row of the lattice, and the
-// blocks' trailing edges are zero, so a wrapped neighbour only ever lands
-// where an edge mask zeroes it.  Remainder tiles (m1 % 8, m2 % 64, m0 %
-// 32) skip the points past the lattice's end, which no knot reads.
+// it.  None of that carries over.  B12 and B13 march planes: a CTA owns an
+// 8 x 64 tile of the (x1, x2) plane and 32 planes of axis 0, and computes
+// each block's stage once per point of the tile and its one-knot low halo,
+// plane after plane (B12: D_b theta, the prox, the dual ascent; B13: D_b v).
+// The adjoint of block b at knot x needs the block's values at the lower
+// neighbours x - e, e <= b: the stage thread takes its axis-0 step from its
+// own values one plane below (registers) and the knots read the rest from
+// one plane of stage values in shared memory (B12: r, u_new (and alpha),
+// ~90 KB with the adjoint carries, ~73 KB without; B13: one value per
+// block, 16 KB, beside rings of 4 v planes and 3 planes of the knots'
+// inputs, 51 KB in all fused, so two CTAs share an SM).
+// The lattice read by the stencil (theta, u; v) streams in with cp.async
+// ahead of the march (B12 one plane, B13 two), so each value is read
+// once, plus the halo: 66 x 10
+// theta (v) and 65 x 9 u points per 64 x 8 knots and one plane in 32 below
+// the chunk, about 16 % more reads than B12's unique bytes, 6 % more than
+// B13's (whose counts, b or oty, dta, dtu and r0 have no halo).  Neighbour
+// indices wrap as jnp.roll does, along every axis and at the plane below a
+// chunk that starts at 0: every halo row is a loaded row of the lattice,
+// and the blocks' trailing edges are zero, so a wrapped neighbour only ever
+// lands where an edge mask zeroes it.  Remainder tiles (m1 % 8, m2 % 64, m0
+// % 32) skip the points past the lattice's end, which no knot reads.  B14
+// runs one thread per knot in C order (m2 fastest, so neighbouring threads
+// read neighbouring addresses), each thread reading the alpha and u blocks
+// at its lower neighbours from L1/L2.
 //
 // Operation order is the TPU kernels': the forward chain differences axis
 // 0, then 1, then 2, with one combined edge mask (_fchain3); the adjoint
@@ -49,9 +55,10 @@
 // bytes per knot (plus the five per-CTA partial sums and their finish
 // pass); 1.14 GB, 0.34 ms at 256^3 at the published 3.35 TB/s.  B13 in
 // fused mode reads v, counts, oty, dta and dtu and writes r0: 24 bytes per
-// knot.  B14 reads 7 alpha, 7 u and oty and writes b: 64 bytes per knot.
-// The scalars (kappa, rho, u_scale) stay on the device.  B13 and B14 have
-// no shared-memory tiling of the neighbourhood yet.
+// knot, 0.12 ms at 256^3.  B14 reads 7 alpha, 7 u and oty and writes b: 64
+// bytes per knot.  The scalars (kappa, rho, u_scale) stay on the device.
+// B14 (on no ADMM path) has no shared-memory tiling of the neighbourhood
+// yet.
 #include "common.cuh"
 
 namespace mvtv {
@@ -100,48 +107,6 @@ __device__ __forceinline__ size_t at3(const Knot3& k, int o0, int o1, int o2, La
   return (size_t(k.c[0][o0 + 1]) * L.m1 + k.c[1][o1 + 1]) * L.m2 + k.c[2][o2 + 1];
 }
 
-// Offset along axis j of the point y + f, y = x - e (e, f bit masks).
-__device__ __forceinline__ int off(int f, int e, int j) { return ((f >> j) & 1) - ((e >> j) & 1); }
-
-__device__ __forceinline__ int nb_index(int f, int e) {
-  return (off(f, e, 0) + 1) * 9 + (off(f, e, 1) + 1) * 3 + (off(f, e, 2) + 1);
-}
-
-// The 27 values of v around the knot, nb_index order.
-__device__ __forceinline__ void load27(const float* __restrict__ v, const Knot3& k, Lat3 L,
-                                       float (&nb)[27]) {
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-#pragma unroll
-    for (int b = 0; b < 3; ++b)
-#pragma unroll
-      for (int c = 0; c < 3; ++c) nb[a * 9 + b * 3 + c] = v[at3(k, a - 1, b - 1, c - 1, L)];
-}
-
-// _fchain3 of block B at y = x - e from the neighbourhood: chained forward
-// differences along axes 0, 1, 2 (those of B), then one combined edge mask.
-template <int B>
-__device__ __forceinline__ float fchain3(const float (&nb)[27], int e, const Knot3& k,
-                                         Lat3 L) {
-  float t[8];
-#pragma unroll
-  for (int f = 0; f < 8; ++f)
-    if (!(f & ~B)) t[f] = nb[nb_index(f, e)];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    if (!((B >> j) & 1)) continue;
-#pragma unroll
-    for (int f = 0; f < 8; ++f)
-      if (!(f & ~B) && !((f >> j) & 1)) t[f] = t[f | (1 << j)] - t[f];
-  }
-  const int m[3] = {L.m0, L.m1, L.m2};
-  float mask = 1.f;
-#pragma unroll
-  for (int j = 0; j < 3; ++j)
-    if ((B >> j) & 1) mask *= edge(k.c[j][((e >> j) & 1) ? 0 : 1], m[j]);
-  return t[0] * mask;
-}
-
 // _achain3 of block B at x from the block's values v[e] at x - e, e <= B:
 // chained (shift up - id) along axes 0, 1, 2.
 template <int B>
@@ -185,6 +150,11 @@ constexpr int kThPts = kTh1 * kTh2;
 // One thread per stage point (19 warps; the first kT1 kT2 threads also
 // form the adjoints of the tile's knots, one each).
 constexpr int kMarchThreads = (kPts + 31) / 32 * 32;
+// B13's CTAs per SM: its 51 KB of shared memory would let 4 share an SM,
+// threads 3; 2 leave each thread 48 registers (3 would leave 32, which the
+// stage's point3 butterfly and the rings' offsets do not fit without
+// spills) and 38 of the SM's 64 warps in flight.
+constexpr int kGramMarchCtas = 2;
 constexpr int kThPerThread = (kThPts + kMarchThreads - 1) / kMarchThreads;
 
 // Shared memory of one CTA, in floats: 3 theta planes, 2 planes of the 7 u
@@ -197,14 +167,6 @@ inline dim3 march_grid(Lat3 L) {
 
 __device__ __forceinline__ int wrap(int i, int m) { return ((i % m) + m) % m; }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // The values a stage point shares across the blocks: dif[S] = theta's
 // chained forward differences along the axes of S (bit j = axis j) at y,
@@ -361,8 +323,8 @@ dual3_march_kernel(const float* __restrict__ theta, In7 u, const float* __restri
   load_theta(0);
   load_theta(1);
   load_u(0);
-  cp_async_commit();
-  cp_async_wait_all();
+  cp_async4_commit();
+  cp_async4_wait<0>();
   __syncthreads();
 
   float st[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
@@ -373,7 +335,7 @@ dual3_march_kernel(const float* __restrict__ theta, In7 u, const float* __restri
     // The next plane's theta and u, in flight during this plane's work.
     if (s + 2 <= nsteps) load_theta(s + 2);
     if (s + 1 < nsteps) load_u(s + 1);
-    cp_async_commit();
+    cp_async4_commit();
     const int p = wrap(c0 - 1 + s, L.m0);
     if (pt_in) {
       const float* uc = u_s + (s & 1) * 7 * kPts + tid;
@@ -425,7 +387,7 @@ dual3_march_kernel(const float* __restrict__ theta, In7 u, const float* __restri
         dtu[g] = au;
       }
     }
-    cp_async_wait_all();
+    cp_async4_wait<0>();
     __syncthreads();
   }
   const int nb = gridDim.x * gridDim.y * gridDim.z;
@@ -437,44 +399,164 @@ dual3_march_kernel(const float* __restrict__ theta, In7 u, const float* __restri
   }
 }
 
-// Block B's term of the Gram at x: achain(fchain(v)) from the
-// neighbourhood.
-template <int B>
-__device__ __forceinline__ float gram_term3(const float (&nb)[27], const Knot3& k, Lat3 L) {
-  float d[8];
+// ---- B13: the Gram residual as a plane march ----
+//
+// The same march as B12's, on its tile, chunk and helpers: at each plane p
+// one thread per stage point forms the 7 blocks' forward chains D_b v (one
+// point3 butterfly, each block with its combined edge mask) and writes to
+// shared memory the value itself or, for the blocks with an axis-0 part,
+// its axis-0 adjoint difference (the value one plane below, kept in a
+// register, minus this one); the knots of plane p then finish _achain3
+// along axes 1 and 2 (achain12) and add the blocks in fd_binaries(3) order
+// with rho s_b^2.  Every read streams in with cp.async two steps ahead:
+// v into a ring of 4 planes, the knots' counts and b (or oty, dta and dtu)
+// into a ring of 3, so each copy has a step and a half of work to land
+// behind.
+
+// Block K's (fd_binaries(3) index, bits BIN) stage value at a point:
+// _fchain3's D_b v (point3's butterfly, then one combined edge mask), or
+// where BIN has an axis-0 part its axis-0 adjoint difference, the value
+// one plane below (pv[K]) minus this one, which pv[K] then takes.
+template <int K, int BIN>
+__device__ __forceinline__ void gram_stage3(const Point3& P, float (&pv)[7], float* d_s,
+                                            int pt) {
+  float mask = 1.f;
 #pragma unroll
-  for (int e = 0; e < 8; ++e)
-    if (!(e & ~B)) d[e] = fchain3<B>(nb, e, k, L);
-  return achain3<B>(d);
+  for (int j = 0; j < 3; ++j)
+    if ((BIN >> j) & 1) mask *= P.edge[j];
+  float dv = P.dif[BIN] * mask;
+  if (BIN & 1) {
+    const float cur = dv;
+    dv = pv[K] - cur;
+    pv[K] = cur;
+  }
+  d_s[K * kPts + pt] = dv;
 }
 
 enum Gram3Mode : int { GRAM3_B_GIVEN = 1, GRAM3_FUSED = 2 };
 
+// The knots' inputs besides v (counts, b; or counts, oty, dta, dtu) and
+// B13's shared memory, in floats: 4 planes of v, one stage value per block
+// and point, 3 planes of the knots' inputs.
+__host__ __device__ constexpr int gram3_inputs(int mode) {
+  return mode == GRAM3_B_GIVEN ? 2 : 4;
+}
+constexpr int gram3_smem_floats(int mode) {
+  return 4 * kThPts + 7 * kPts + 3 * gram3_inputs(mode) * kT1 * kT2;
+}
+
 template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-gram3_kernel(const float* __restrict__ v, const float* __restrict__ counts,
-             const float* __restrict__ b, const float* __restrict__ oty,
-             const float* __restrict__ dta, const float* __restrict__ dtu,
-             const float* __restrict__ rho_p, const float* __restrict__ us_p, Scales7 sc,
-             float* __restrict__ out, Lat3 L) {
-  const size_t n = size_t(L.m0) * L.m1 * L.m2;
-  const size_t idx = size_t(blockIdx.x) * kThreads + threadIdx.x;
-  if (idx >= n) return;
-  const Knot3 k = knot3(idx, L);
+__global__ void __launch_bounds__(kMarchThreads, kGramMarchCtas)
+gram3_march_kernel(const float* __restrict__ v, const float* __restrict__ counts,
+                   const float* __restrict__ b, const float* __restrict__ oty,
+                   const float* __restrict__ dta, const float* __restrict__ dtu,
+                   const float* __restrict__ rho_p, const float* __restrict__ us_p, Scales7 sc,
+                   float* __restrict__ out, Lat3 L) {
+  constexpr int NIN = gram3_inputs(MODE);
+  extern __shared__ __align__(16) float smem[];
+  float* v_s = smem;                 // [4][kThPts]: v planes, a ring
+  float* d_s = v_s + 4 * kThPts;     // [7][kPts]: per block, D_b v or its axis-0 step
+  float* in_s = d_s + 7 * kPts;      // [3][NIN][kT1 kT2]: the knots' other inputs, a ring
+
+  const int tid = threadIdx.x;
+  const int o1 = blockIdx.y * kT1, o2 = blockIdx.x * kT2;  // the tile's first knot
+  const int c0 = blockIdx.z * kChunk, c1 = min(c0 + kChunk, L.m0);
+  const int nsteps = c1 - c0 + 1;  // stage planes c0 - 1 .. c1 - 1
+  const size_t plane = size_t(L.m1) * L.m2;
+  const int m[3] = {L.m0, L.m1, L.m2};
+  const int no_tm[3] = {-1, -1, -1};
   const float rho = *rho_p;
-  float nb[27];
-  load27(v, k, L, nb);
-  // rho * s^2 per block, s^2 rounded first (pallas_kernels.py:2285).
-  float acc = 0.f;
-  acc += rho * (sc.s[0] * sc.s[0]) * gram_term3<kBin0>(nb, k, L);
-  acc += rho * (sc.s[1] * sc.s[1]) * gram_term3<kBin1>(nb, k, L);
-  acc += rho * (sc.s[2] * sc.s[2]) * gram_term3<kBin2>(nb, k, L);
-  acc += rho * (sc.s[3] * sc.s[3]) * gram_term3<kBin3>(nb, k, L);
-  acc += rho * (sc.s[4] * sc.s[4]) * gram_term3<kBin4>(nb, k, L);
-  acc += rho * (sc.s[5] * sc.s[5]) * gram_term3<kBin5>(nb, k, L);
-  acc += rho * (sc.s[6] * sc.s[6]) * gram_term3<kBin6>(nb, k, L);
-  const float bv = MODE == GRAM3_B_GIVEN ? b[idx] : oty[idx] + rho * (dta[idx] + *us_p * dtu[idx]);
-  out[idx] = bv - (counts[idx] * nb[13] + acc);
+  const float us = MODE == GRAM3_FUSED ? *us_p : 0.f;
+
+  // v's points and this thread's stage point, as in dual3_march_kernel.
+  int v_off[kThPerThread];
+#pragma unroll
+  for (int i = 0; i < kThPerThread; ++i) {
+    const int idx = tid + i * kMarchThreads, a1 = idx / kTh2, a2 = idx % kTh2;
+    v_off[i] = -1;
+    if (idx < kThPts && a1 <= L.m1 - o1 + 1 && a2 <= L.m2 - o2 + 1)
+      v_off[i] = wrap(o1 - 1 + a1, L.m1) * L.m2 + wrap(o2 - 1 + a2, L.m2);
+  }
+  const int l1 = tid / kH2, l2 = tid % kH2;
+  const bool pt_in = tid < kPts && l1 <= L.m1 - o1 && l2 <= L.m2 - o2;
+  const int y1 = pt_in ? wrap(o1 - 1 + l1, L.m1) : 0, y2 = pt_in ? wrap(o2 - 1 + l2, L.m2) : 0;
+  const int q = l1 * kTh2 + l2;  // the stage point's v
+  // v plane c0 - 1 + j into ring slot j % 4, if the march reads it.
+  auto load_v = [&](int j) {
+    if (j > nsteps) return;
+    const float* src = v + size_t(wrap(c0 - 1 + j, L.m0)) * plane;
+    float* dst = v_s + (j & 3) * kThPts;
+#pragma unroll
+    for (int i = 0; i < kThPerThread; ++i)
+      if (v_off[i] >= 0) cp_async4(dst + tid + i * kMarchThreads, src + v_off[i]);
+  };
+  const int k1 = tid / kT2, k2 = tid % kT2;  // this thread's knot of the tile
+  const bool knot_in = tid < kT1 * kT2 && o1 + k1 < L.m1 && o2 + k2 < L.m2;
+  const size_t knot_off = size_t(o1 + k1) * L.m2 + (o2 + k2);
+  const float* ins[4] = {counts, MODE == GRAM3_B_GIVEN ? b : oty, dta, dtu};
+  // The knots' inputs at stage step t >= 1 (plane c0 - 1 + t) into slot t % 3.
+  auto load_in = [&](int t) {
+    if (!knot_in || t >= nsteps) return;
+    const size_t g = size_t(c0 - 1 + t) * plane + knot_off;
+    float* dst = in_s + (t % 3) * NIN * (kT1 * kT2) + tid;
+#pragma unroll
+    for (int k = 0; k < NIN; ++k) cp_async4(dst + k * (kT1 * kT2), ins[k] + g);
+  };
+  // Two steps ahead: the planes of steps 0 and 1 land first; then each
+  // step's copies (v of step + 3, the inputs of step + 2) have this step
+  // and the next to land.
+  load_v(0);
+  load_v(1);
+  cp_async4_commit();
+  load_v(2);
+  load_in(1);
+  cp_async4_commit();
+  cp_async4_wait<1>();
+  __syncthreads();
+
+  float pv[7] = {};  // this point's D_b v one plane below (blocks with an axis-0 part)
+  for (int s = 0; s < nsteps; ++s) {
+    load_v(s + 3);
+    load_in(s + 2);
+    cp_async4_commit();
+    const int p = wrap(c0 - 1 + s, L.m0);
+    if (pt_in) {
+      const int y[3] = {p, y1, y2};
+      const Point3 P = point3(v_s + (s & 3) * kThPts, v_s + ((s + 1) & 3) * kThPts, q, y, m,
+                              no_tm);
+      gram_stage3<0, kBin0>(P, pv, d_s, tid);
+      gram_stage3<1, kBin1>(P, pv, d_s, tid);
+      gram_stage3<2, kBin2>(P, pv, d_s, tid);
+      gram_stage3<3, kBin3>(P, pv, d_s, tid);
+      gram_stage3<4, kBin4>(P, pv, d_s, tid);
+      gram_stage3<5, kBin5>(P, pv, d_s, tid);
+      gram_stage3<6, kBin6>(P, pv, d_s, tid);
+    }
+    __syncthreads();
+    // r0 at plane p's knots: the blocks' adjoint chains from the shared
+    // values, added in fd_binaries(3) order with rho s_b^2 (s_b^2 rounded
+    // first, pallas_kernels.py:2285).
+    if (s >= 1 && knot_in) {
+      const float* in = in_s + (s % 3) * NIN * (kT1 * kT2) + tid;
+      const float cv = in[0];
+      const float bv = MODE == GRAM3_B_GIVEN
+                           ? in[kT1 * kT2]
+                           : in[kT1 * kT2] + rho * (in[2 * kT1 * kT2] + us * in[3 * kT1 * kT2]);
+      const int pt = (k1 + 1) * kH2 + k2 + 1;
+      float acc = 0.f;
+      acc += rho * (sc.s[0] * sc.s[0]) * achain12<kBin0>(d_s + 0 * kPts, 0, pt);
+      acc += rho * (sc.s[1] * sc.s[1]) * achain12<kBin1>(d_s + 1 * kPts, 0, pt);
+      acc += rho * (sc.s[2] * sc.s[2]) * achain12<kBin2>(d_s + 2 * kPts, 0, pt);
+      acc += rho * (sc.s[3] * sc.s[3]) * achain12<kBin3>(d_s + 3 * kPts, 0, pt);
+      acc += rho * (sc.s[4] * sc.s[4]) * achain12<kBin4>(d_s + 4 * kPts, 0, pt);
+      acc += rho * (sc.s[5] * sc.s[5]) * achain12<kBin5>(d_s + 5 * kPts, 0, pt);
+      acc += rho * (sc.s[6] * sc.s[6]) * achain12<kBin6>(d_s + 6 * kPts, 0, pt);
+      const float vc = v_s[(s & 3) * kThPts + (k1 + 1) * kTh2 + (k2 + 1)];
+      out[size_t(p) * plane + knot_off] = bv - (cv * vc + acc);
+    }
+    cp_async4_wait<1>();
+    __syncthreads();
+  }
 }
 
 // Block B's term of the rhs adjoint at x: achain(alpha + u_scale u).
@@ -575,15 +657,23 @@ extern "C" int mvtv_gram_tiled_3d(int mode, const float* v, const float* counts,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Lat3 L{m0, m1, m2};
   const Scales7 sc{{s0, s1, s2, s3, s4, s5, s6}};
-  const unsigned grid = flat_blocks(L);
+  const dim3 grid = march_grid(L);
+  if ((long long)m1 * m2 > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+#define MVTV_GRAM3(MODE)                                                                      \
+  do {                                                                                        \
+    const int bytes = int(sizeof(float)) * gram3_smem_floats(MODE);                           \
+    MVTV_CHECK(int(cudaFuncSetAttribute(gram3_march_kernel<MODE>,                             \
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes))); \
+    gram3_march_kernel<MODE><<<grid, kMarchThreads, bytes, s>>>(v, counts, b, oty, dta, dtu,  \
+                                                                 rho, uscale, sc, out, L);     \
+  } while (0)
   if (mode == GRAM3_B_GIVEN)
-    gram3_kernel<GRAM3_B_GIVEN><<<grid, kThreads, 0, s>>>(v, counts, b, oty, dta, dtu, rho,
-                                                          uscale, sc, out, L);
+    MVTV_GRAM3(GRAM3_B_GIVEN);
   else if (mode == GRAM3_FUSED)
-    gram3_kernel<GRAM3_FUSED><<<grid, kThreads, 0, s>>>(v, counts, b, oty, dta, dtu, rho,
-                                                        uscale, sc, out, L);
+    MVTV_GRAM3(GRAM3_FUSED);
   else
     return int(cudaErrorInvalidValue);
+#undef MVTV_GRAM3
   return int(cudaGetLastError());
 }
 

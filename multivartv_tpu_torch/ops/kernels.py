@@ -522,16 +522,16 @@ def rhs_tiled_3d_reference(alpha, u, oty, rho, u_scale, scales):
 _P, _F, _I, _LL = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "mvtv_rhs_2d": [_P] * 9 + [_F] * 3 + [_P, _P, _I, _I, _P],
-    "mvtv_dual_update_2d": [_P] * 6 + [_F] * 3 + [_I, _I] + [_P] * 4 + [_I, _I, _P],
+    "mvtv_dual_update_2d": [_P] * 6 + [_F] * 3 + [_I, _I] + [_P] * 5 + [_I, _I, _P],
     "mvtv_xupdate_pcg_2d_packed": [_P] * 10 + [_F] * 3 + [_I] + [_P] * 4 + [_I, _I, _P],
     "mvtv_admm_iters_2d_batched": ([_P] * 9 + [_LL] + [_P] * 10 + [_F] * 3 + [_I, _I]
-                                   + [_F] * 3 + [_I] * 3 + [_P] * 3 + [_I] * 3 + [_P]),
+                                   + [_F] * 3 + [_I] * 3 + [_P] * 4 + [_I] * 3 + [_P]),
     "mvtv_xupdate_pcg_2d": [_P] * 8 + [_F] * 3 + [_I] + [_P] * 4 + [_I, _I, _P],
     "mvtv_xupdate_pcg_2d_work": [_I, _I],
     "mvtv_xupdate_pcg_2d_packed_work": [_I, _I],
     "mvtv_admm_iters_2d_batched_work": [_I] * 3,
     "mvtv_gram_matvec_2d": [_P] * 3 + [_F] * 3 + [_P] * 3 + [_I, _I, _P],
-    "mvtv_dual_update_tiled_2d": [_P] * 6 + [_F] * 3 + [_I] * 4 + [_P] * 6 + [_I, _I, _P],
+    "mvtv_dual_update_tiled_2d": [_P] * 6 + [_F] * 3 + [_I] * 4 + [_P] * 7 + [_I, _I, _P],
     "mvtv_gram_tiled_2d": [_I] + [_P] * 8 + [_F] * 3 + [_P, _I, _I, _P],
     "mvtv_dual_update_tiled_3d": ([_P] * 10 + [_F] * 7 + [_I] * 5 + [_P] * 5 + [_LL, _P]
                                   + [_I] * 3 + [_P]),
@@ -617,10 +617,36 @@ def _scal_buffer(n_steps: int, device, batch: int = 1) -> torch.Tensor:
     return torch.empty(batch * (S_CG + 2 * (n_steps + 1)), dtype=torch.float32, device=device)
 
 
+def _tiles(shape) -> int:
+    """The 32 x 8 stencil blocks of one (m0, m1) lattice."""
+    return -(-shape[1] // 32) * -(-shape[0] // 8)
+
+
 def _partials(shape, nv: int, device, batch: int = 1) -> torch.Tensor:
     """nv per-block partial sums per problem, one per 32 x 8 stencil block."""
-    nblocks = -(-shape[1] // 32) * -(-shape[0] // 8)
-    return torch.empty(batch * nv * nblocks, dtype=torch.float32, device=device)
+    return torch.empty(batch * nv * _tiles(shape), dtype=torch.float32, device=device)
+
+
+_TICKETS = {}
+
+
+def _ticket(device, stream: int) -> int:
+    """Device pointer of the dual stage's last-CTA ticket (csrc/dual.cu)
+    for one stream of ``device``: one int32, zeroed once, which every
+    launch leaves at 0; launches on one stream run in order, so they share
+    it."""
+    key = (device.index, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _TICKETS[key].data_ptr()
+
+
+def _dual_buffers(shape, n_lat: int, device):
+    """A dual stage's buffers, two allocations: its n_lat output lattices,
+    and its scalar row (the statistics at S_STATS) followed by its 5
+    partial sums per 32 x 8 tile (from float S_CG on)."""
+    out = torch.empty((n_lat,) + tuple(shape), dtype=torch.float32, device=device)
+    return out, torch.empty(S_CG + 5 * _tiles(shape), dtype=torch.float32, device=device)
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -665,17 +691,18 @@ def dual_update_2d(theta: torch.Tensor, u: Sequence[torch.Tensor], kappa,
     if u_scale is None:
         u_scale = torch.ones((), dtype=torch.float32, device=dev)
     lib = _lib()
-    out = torch.empty((6,) + shape, dtype=torch.float32, device=dev)
-    scal = _scal_buffer(0, dev)
-    partials = _partials(shape, 5, dev)
+    out, work = _dual_buffers(shape, 6, dev)
     t0, t1 = (-1, -1) if true_m is None else (int(true_m[0]), int(true_m[1]))
+    stream, ptr, step = _stream(dev), out.data_ptr(), 4 * shape[0] * shape[1]
     err = lib.mvtv_dual_update_2d(
         theta.data_ptr(), *(t.data_ptr() for t in u), _scalar_ptr(kappa, dev),
-        _scalar_ptr(u_scale, dev), *scales, t0, t1, out[0].data_ptr(), out[3].data_ptr(),
-        partials.data_ptr(), scal.data_ptr(), shape[0], shape[1], _stream(dev))
+        _scalar_ptr(u_scale, dev), *scales, t0, t1, ptr, ptr + 3 * step,
+        work.data_ptr() + 4 * S_CG, _ticket(dev, stream), work.data_ptr(), shape[0], shape[1],
+        stream)
     _raise_on(err, "dual_update_2d")
     launch_counts["dual_update_2d"] += 1
-    return tuple(out[0:3].unbind(0)), tuple(out[3:6].unbind(0)), scal[S_STATS:S_STATS + 5]
+    lat = out.unbind(0)
+    return lat[:3], lat[3:], work[S_STATS:S_STATS + 5]
 
 
 def xupdate_pcg_2d_packed(b: torch.Tensor, x0: torch.Tensor, counts: torch.Tensor,
@@ -770,6 +797,7 @@ def _check_vectors(n: int, *vectors):
 def _chain_buffers(scratch: Optional[dict], dev, batch: int, m0: int, m1: int,
                    n_steps: int) -> dict:
     """The chain's buffers for (device, B, m0, m1, n_steps): work, partials,
+    the dual stage's tickets (zeroed here, left 0 by every launch),
     scalars, the per-problem scalar inputs, the activity mask and B4's
     stacked state.  chain.cu replays its captured graph only for repeated
     addresses, so a solve keeps one scratch dict across its chunk calls and
@@ -783,6 +811,7 @@ def _chain_buffers(scratch: Optional[dict], dev, batch: int, m0: int, m1: int,
                 work=torch.empty(_lib().mvtv_admm_iters_2d_batched_work(batch, m0, m1), **f32),
                 scal=_scal_buffer(n_steps, dev, batch).reshape(batch, -1),
                 partials=_partials((m0, m1), 5, dev, batch),
+                tickets=torch.zeros(batch, dtype=torch.int32, device=dev),
                 inp=torch.empty((4, batch), **f32),
                 act=torch.empty(batch, dtype=torch.int32, device=dev),
                 state=torch.empty((7, batch, m0, m1), **f32) if batch == 1 else None)
@@ -817,8 +846,8 @@ def _launch_chain(theta, u, alpha, counts, oty, halves_lp, eigs_packed, lams, rh
         te0.data_ptr(), to0.data_ptr(), te1.data_ptr(), to1.data_ptr(), eigs_packed.data_ptr(),
         *(v.data_ptr() for v in inp), None if act is None else act.data_ptr(), *scales, k_iters,
         n_steps, tau, band, tau if tau_shrink is None else tau_shrink, int(adapt), t0, t1,
-        bufs["work"].data_ptr(), bufs["partials"].data_ptr(), scal.data_ptr(), batch, m0, m1,
-        _stream(dev))
+        bufs["work"].data_ptr(), bufs["partials"].data_ptr(), bufs["tickets"].data_ptr(),
+        scal.data_ptr(), batch, m0, m1, _stream(dev))
     scal = scal.clone()
     return err, scal[:, S_RHO], scal[:, S_USCALE], scal[:, S_STATS:S_STATS + 6]
 
@@ -944,23 +973,23 @@ def dual_update_tiled_2d(theta: torch.Tensor, u: Sequence[torch.Tensor], kappa,
         u_scale = torch.ones((), dtype=torch.float32, device=dev)
     lib = _lib()
     n_a, n_d = (3 if want_alpha else 0), (2 if want_adjoints else 0)
-    out = torch.empty((n_a + 3 + n_d,) + shape, dtype=torch.float32, device=dev)
-    scal = _scal_buffer(0, dev)
-    partials = _partials(shape, 5, dev)
+    out, work = _dual_buffers(shape, n_a + 3 + n_d, dev)
     t0, t1 = (-1, -1) if true_m is None else (int(true_m[0]), int(true_m[1]))
+    stream, ptr, step = _stream(dev), out.data_ptr(), 4 * shape[0] * shape[1]
     err = lib.mvtv_dual_update_tiled_2d(
         theta.data_ptr(), *(t.data_ptr() for t in u), _scalar_ptr(kappa, dev),
         _scalar_ptr(u_scale, dev), *scales, t0, t1, int(want_alpha), int(want_adjoints),
-        out[0].data_ptr() if want_alpha else None, out[n_a].data_ptr(),
-        out[n_a + 3].data_ptr() if want_adjoints else None,
-        out[n_a + 4].data_ptr() if want_adjoints else None,
-        partials.data_ptr(), scal.data_ptr(), shape[0], shape[1], _stream(dev))
+        ptr if want_alpha else None, ptr + n_a * step,
+        ptr + (n_a + 3) * step if want_adjoints else None,
+        ptr + (n_a + 4) * step if want_adjoints else None,
+        work.data_ptr() + 4 * S_CG, _ticket(dev, stream), work.data_ptr(), shape[0], shape[1],
+        stream)
     _raise_on(err, "dual_update_tiled_2d")
     launch_counts["dual_update_tiled_2d"] += 1
-    res = (tuple(out[0:3].unbind(0)) if want_alpha else None,
-           tuple(out[n_a:n_a + 3].unbind(0)), scal[S_STATS:S_STATS + 5])
+    lat = out.unbind(0)
+    res = (lat[:3] if want_alpha else None, lat[n_a:n_a + 3], work[S_STATS:S_STATS + 5])
     if want_adjoints:
-        res += (out[n_a + 3], out[n_a + 4])
+        res += lat[n_a + 3:]
     return res
 
 

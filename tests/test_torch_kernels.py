@@ -71,16 +71,30 @@ def test_rhs_matches_pallas(setup):
     close(b, jb, 1e-5)
 
 
-@pytest.mark.parametrize("u_scale,true_m", [(None, None), (0.5, None), (0.5, (15, 29))])
-def test_dual_update_matches_pallas(setup, u_scale, true_m):
-    """Arrays to 1e-5, stats to rtol 1e-4 (test_pallas.py:49-60)."""
+@pytest.mark.parametrize("u_scale,true_m,shape", [
+    pytest.param(None, None, M, id="None-None"),
+    pytest.param(0.5, None, M, id="0.5-None"),
+    pytest.param(0.5, (15, 29), M, id="0.5-true_m2"),
+    pytest.param(0.5, None, (15, 33), id="0.5-None-odd15x33")])
+def test_dual_update_matches_pallas(setup, u_scale, true_m, shape):
+    """Arrays to 1e-5, stats to rtol 1e-4 (test_pallas.py:49-60); also on
+    an odd, unpadded lattice, the shape class of the whole route's
+    cpp_standalone solves (1023^2), where B1's tiles have remainders in
+    both axes."""
     s = setup
-    a, un, st = K.dual_update_2d(t(s["theta"]), tuple(map(t, s["u"])), t(0.3),
-                                 s["ops"].scales,
+    if shape == M:
+        theta, u = s["theta"], s["u"]
+    else:
+        rng = np.random.RandomState(4)
+        masks = [np.broadcast_to(np.asarray(jdiff.edge_mask(shape, b)), shape)
+                 for b in s["jops"].binaries]
+        theta = rng.randn(*shape).astype(np.float32)
+        u = [(rng.randn(*shape) * mk).astype(np.float32) for mk in masks]
+    a, un, st = K.dual_update_2d(t(theta), tuple(map(t, u)), t(0.3), s["ops"].scales,
                                  u_scale=None if u_scale is None else t(u_scale),
                                  true_m=true_m)
     ja, jun, jst = pk.dual_update_2d(
-        jnp.asarray(s["theta"]), tuple(map(jnp.asarray, s["u"])), jnp.float32(0.3),
+        jnp.asarray(theta), tuple(map(jnp.asarray, u)), jnp.float32(0.3),
         s["jops"].scales, u_scale=None if u_scale is None else jnp.float32(u_scale),
         true_m=true_m, interpret=True)
     for got, want in zip(a + un, tuple(ja) + tuple(jun)):
@@ -193,6 +207,35 @@ def test_wrappers_reject_bad_arguments(setup):
                                 ops.scales, 3)
     with pytest.raises(ValueError):        # non-contiguous
         K.rhs_2d(u, u, t(s["oty"]).T.contiguous().T, t(0.7), None, ops.scales)
+
+
+def _ctypes_kind(param: str):
+    """The ctypes type a C parameter declaration binds to."""
+    if "*" in param:
+        return K._P
+    if "long long" in param:
+        return K._LL
+    return K._F if param.split()[0] == "float" else K._I
+
+
+def test_argtypes_match_the_entry_points():
+    """Every extern "C" entry point of csrc/*.cu has its ctypes signature
+    in _ARGTYPES, parameter for parameter (pointer, float, int, long long),
+    and _ARGTYPES names no other function: on the card a missing or short
+    signature shows only as a crash or a cut pointer."""
+    import re
+
+    from multivartv_tpu_torch.ops import _build
+
+    decl = re.compile(r'extern "C"\s+[\w ]+?\s\**(mvtv_\w+)\s*\(([^)]*)\)')
+    found = {}
+    for src in sorted(_build.CSRC_DIR.glob("*.cu")):
+        for name, params in decl.findall(src.read_text()):
+            params = " ".join(params.split())
+            found[name] = [_ctypes_kind(p) for p in params.split(",")] if params else []
+    assert found and set(found) == set(K._ARGTYPES)
+    for name, kinds in found.items():
+        assert K._ARGTYPES[name] == kinds, name
 
 
 def test_route_uses_the_tensor_device(setup):
