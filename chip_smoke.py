@@ -84,6 +84,7 @@ phase header carries the seconds since the start.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -2373,10 +2374,11 @@ SLAB_HALO_ROWS = {"dual_update_tiled_2d_shard": 5, "gram_residual_tiled_2d_shard
 
 
 def kernel_work(name: str, m, batch: int = 1, k_iters: int = 4, n_steps: int = 3,
-                n_in: int = 0, n_out: int = 0):
+                n_in: int = 0, n_out: int = 0, fused: bool = False):
     """(bytes, operations) one call of a kernel must move and do at lattice
     m: each input read once and each output written once (the per-block
-    partial sums aside); operations are the folded DCT products'."""
+    partial sums aside); operations are the folded DCT products'.  fused:
+    B9s with b formed from oty, dta and dtu (24 bytes per knot, not 16)."""
     n = int(np.prod(m))
     halves = sum(2 * 2 * (v // 2) ** 2 for v in m)    # bf16 (Te, To) per axis
     transform = n * sum(m)                            # one folded DCT, 2 flops per MAC
@@ -2402,7 +2404,8 @@ def kernel_work(name: str, m, batch: int = 1, k_iters: int = 4, n_steps: int = 3
         return batch * 64 * n + 4 * n + halves, batch * k_iters * 2 * n_steps * transform
     if name == "dual_struct":                          # n_in lattices in, n_out out
         return 4 * n * (n_in + n_out), 0
-    nbytes = per_knot[name] * n + 4 * m[1] * SLAB_HALO_ROWS.get(name, 0)
+    knot = 24 if fused and name == "gram_residual_tiled_2d_shard" else per_knot[name]
+    nbytes = knot * n + 4 * m[1] * SLAB_HALO_ROWS.get(name, 0)
     flops = 0
     if name == "xupdate_pcg_2d_packed":
         nbytes, flops = nbytes + halves, 2 * n_steps * transform
@@ -2463,13 +2466,18 @@ def _profile_group(key: str) -> str:
         return "B6 bf16 operand staging (dct_mma.cu)"
     if any(t in k for t in ("residual_kernel", "gram_matvec_dot", "cg_update", "spectral_scale")):
         return "B2 and the B3/B6 CG stages"
-    if "dual_tile_kernel<true" in k:
+    head = k.split("(")[0]      # the kernel's name and template arguments
+    if "dual_tile_kernel" in head and head.endswith("true>"):
+        return "B8s dual_update_tiled_2d_shard"
+    if "dual_tile_kernel<true" in head:
         return "B1 dual_update_2d"
-    if "dual_tile_kernel" in k:
+    if "dual_tile_kernel" in head:
         return "B8 dual_update_tiled_2d"
-    if "gram_tiled_kernel<0" in k:
+    if "gram_march_kernel" in head and head.endswith("true>"):
+        return "B9s gram_residual_tiled_2d_shard and its matvec mode"
+    if "gram_march_kernel<0" in head:
         return "B10 gram_matvec_tiled_2d"
-    if "gram_tiled_kernel" in k:
+    if "gram_march_kernel" in head:
         return "B9 gram_residual_tiled_2d"
     if "finish_kernel" in k or "init_scalars" in k:
         return "B8/B12 scalars and finish pass"
@@ -2532,6 +2540,23 @@ def profile_iterations(label: str, run, n_iters: int, wall_ms: float) -> None:
         log(f"    {us / 1e3 / n_iters:.4f} ms/it  x{count / n_iters:g}/it  {key}")
 
 
+def digest(out) -> str:
+    """A short sha256 of a call's outputs (tensors, nested tuples, None)."""
+    import torch
+    h = hashlib.sha256()
+
+    def feed(x):
+        if isinstance(x, (tuple, list)):
+            for y in x:
+                feed(y)
+        elif isinstance(x, torch.Tensor):
+            h.update(x.detach().contiguous().cpu().numpy().tobytes())
+        else:
+            h.update(repr(x).encode())
+    feed(out)
+    return h.hexdigest()[:16]
+
+
 def time_call(name: str, label: str, run, m, n: int = 20, **kw) -> float:
     """One kernel call at its launch size: CUDA-event ms per call (two runs
     of n), torch.profiler device ms and kernels per call, and host us per
@@ -2555,21 +2580,99 @@ def time_call(name: str, label: str, run, m, n: int = 20, **kw) -> float:
     return min(k1, k2)
 
 
+def launch_bits(device):
+    """Digests of the dual stage's and the Gram kernels' outputs (B1, B8,
+    B8s, B4, B5 with their dual stage, B9, B10, B9s) on inputs drawn from a
+    seeded generator on the card, the DCT operators of the 512^2 and 316^2
+    fits (the warm states of the main paths differ from run to run: O'y is
+    summed with atomics).  Phase 19 run from two trees in one call shows by
+    them whether the trees give the same bits."""
+    import torch
+    from multivartv_tpu_torch.api import _resolve_mesh
+    from multivartv_tpu_torch.config import DEFAULT_MESH, SolverConfig
+    from multivartv_tpu_torch.ops import kernels as K
+    from multivartv_tpu_torch.solver.problem import build_operators
+
+    gen = torch.Generator(device=device).manual_seed(10)
+
+    def lat(*m, scale=1.0):
+        return torch.randn(m, device=device, generator=gen) * scale
+
+    def scalar(x, n=None):
+        return torch.full(() if n is None else (n,), x, dtype=torch.float32, device=device)
+
+    def bits(label, out):
+        torch.cuda.synchronize()
+        log(f"  bits {label}: {digest(out)}")
+
+    sc = (0.37, 0.81, 1.3)
+    kappa, us, rho = scalar(0.05), scalar(0.7), scalar(0.4)
+    for m in ((512, 512), (1023, 1023), (511, 2047)):
+        th, u = lat(*m), tuple(lat(*m) for _ in range(3))
+        bits(f"dual_update_2d {m}", K.dual_update_2d(th, u, kappa, sc, us))
+        bits(f"dual_update_2d {m} true_m", K.dual_update_2d(th, u, kappa, sc, us,
+                                                           (m[0] - 1, m[1] - 1)))
+    m = (2048, 2048)
+    th, u = lat(*m), tuple(lat(*m) for _ in range(3))
+    zero = torch.zeros(8, m[1], device=device)
+    for flags in ((True, False), (False, True)):
+        bits(f"dual_update_tiled_2d {m} want_adjoints={flags[0]}",
+             K.dual_update_tiled_2d(th, u, kappa, sc, us, None, *flags))
+        bits(f"dual_update_tiled_2d_shard {m} one-rank slab want_adjoints={flags[0]}",
+             K.dual_update_tiled_2d_shard(th, u, [zero] * 4, [zero] * 4, 0, m[0], kappa, sc, us,
+                                          None, *flags))
+    v, c, b = lat(*m), lat(*m).abs(), lat(*m)
+    parts = (b, lat(*m), us, lat(*m))
+    bits(f"gram_residual_tiled_2d {m} b given", K.gram_residual_tiled_2d(b, v, c, rho, sc))
+    bits(f"gram_residual_tiled_2d {m} fused",
+         K.gram_residual_tiled_2d(None, v, c, rho, sc, rhs_parts=parts))
+    bits(f"gram_matvec_tiled_2d {m}", K.gram_matvec_tiled_2d(v, c, rho, sc))
+    bits(f"gram_residual_tiled_2d_shard {m} one-rank slab b given",
+         K.gram_residual_tiled_2d_shard(b, v, zero, zero, 0, m[0], c, rho, sc))
+    bits(f"gram_matvec_tiled_2d_shard {m} one-rank slab",
+         K.gram_matvec_tiled_2d_shard(v, zero, zero, 0, m[0], c, rho, sc))
+    del th, u, v, c, b, parts, zero
+    for name, batch in (("512^2 n=2^20", 1), ("316^2 n=1e5", 5)):
+        make, mm, _ = WORKLOADS[name]
+        spec = _resolve_mesh(make()[0], mm, DEFAULT_MESH, device)
+        ops = build_operators(spec.m, spec.deltas, SolverConfig(), device)
+        m, lead = ops.m, (batch,) if batch > 1 else ()
+        st = (lat(*lead, *m), *(lat(*lead, *m, scale=0.1) for _ in range(6)))
+        counts, oty = lat(*m).abs().round(), lat(*m)
+        sc2, halves, eigs = ops.scales, ops.dct_halves_lp, ops.gram_eigs_packed
+        cbar = float(counts.mean())
+        if batch == 1:
+            out = K.admm_iters_2d(st[0], st[1:4], st[4:7], counts, oty, halves, eigs,
+                                  scalar(0.05), rho, us, scalar(cbar), sc2, k_iters=4, n_steps=3)
+            bits(f"admm_iters_2d {m} K=4", out)
+        else:
+            out = K.admm_iters_2d_batched(
+                st[0], st[1:4], st[4:7], counts, oty, halves, eigs, scalar(0.05, batch),
+                scalar(0.4, batch), scalar(0.7, batch), scalar(cbar, batch), sc2, k_iters=4,
+                n_steps=3)
+            bits(f"admm_iters_2d_batched {m} B={batch} K=4", out)
+        del st, counts, oty, out, ops
+
+
 def phase_launch_sizes(device):
     """Phase 19 (only when listed): the redesigned kernels and their
     neighbours at the sizes where the main paths launch them, with
     time_call's four numbers each: B1 at 512^2 and 1023^2, B2 at 1023^2,
     B4 at 512^2 (K = 4), B5 at 316^2 (B = 5, K = 4, the state's copies
-    included, as in phase 7), B8 at 2048^2, B9s's matvec mode on the
-    one-rank 1024^2 slab and B13 (fused) at 256^3 and 256 x 256 x 64.  It
-    calls only entry points whose arguments are unchanged since PR 8, so
-    the same file, copied into an older checkout's root, times that tree's
-    kernels in the same call (parent, change, change, parent)."""
+    included, as in phase 7), B8 at 2048^2, B8s (carries) on the 2048^2
+    one-rank slab and on one of SHARD_SLABS slabs, B9s (b given and fused)
+    on the 2048^2 one-rank slab, B9 (fused) and B10 at 2048^2 and 192 x
+    8192, B9s's matvec mode on the one-rank 1024^2 slab and B13 (fused) at
+    256^3 and 256 x 256 x 64.  It calls only the wrappers' Python entry
+    points, whose arguments stay fixed, so the same file, copied into an
+    older checkout's root, times that tree's kernels in the same call
+    (parent, change, change, parent)."""
     import torch
     from multivartv_tpu_torch.ops import kernels as K
     from multivartv_tpu_torch.solver import admm
 
     log(f"phase 19: kernels at their launch sizes on {GPU_LINE}")
+    launch_bits(device)
     I = path_inputs("512^2 n=2^20", device)
     sc, m, us = I["ops"].scales, I["m"], I["u_scale"]
     kappa = I["lam"] / I["rho"]
@@ -2607,7 +2710,35 @@ def phase_launch_sizes(device):
     time_call("dual_update_tiled_2d", "2048^2",
               lambda: K.dual_update_tiled_2d(s.theta, s.u, kappa, sc, s.u_scale, None, True,
                                              False), I["m"])
-    del I, s
+    pr, m = I["problem"], I["m"]
+    for slabs in (1, SHARD_SLABS):
+        r = 1 if slabs > 1 else 0
+        lo, hi = r * m[0] // slabs, (r + 1) * m[0] // slabs
+        tops, bots = slab_halos((s.theta, *s.u), lo, hi)
+        dual = (s.theta[lo:hi], tuple(w[lo:hi] for w in s.u), tops, bots, lo, m[0], kappa, sc,
+                s.u_scale, None, True, False)
+        time_call("dual_update_tiled_2d_shard", f"{hi - lo}x{m[1]} slab {r} of 2048^2",
+                  lambda: K.dual_update_tiled_2d_shard(*dual), (hi - lo, m[1]))
+    (vt,), (vb,) = slab_halos((s.theta,), 0, m[0])
+    b = pr.oty + s.rho * (s.dta + s.u_scale * s.dtu)
+    time_call("gram_residual_tiled_2d_shard", "2048^2 one-rank slab, b given",
+              lambda: K.gram_residual_tiled_2d_shard(b, s.theta, vt, vb, 0, m[0], pr.counts,
+                                                     s.rho, sc), m)
+    parts = (pr.oty, s.dta, s.u_scale, s.dtu)
+    time_call("gram_residual_tiled_2d_shard", "2048^2 one-rank slab, fused",
+              lambda: K.gram_residual_tiled_2d_shard(None, s.theta, vt, vb, 0, m[0], pr.counts,
+                                                     s.rho, sc, rhs_parts=parts), m, fused=True)
+    del I, s, pr, b, parts, dual, tops, bots
+    for name in TIMED_LARGE:
+        I = tiled_inputs(name, device)
+        pr, s, sc, m = I["problem"], I["s"], I["ops"].scales, I["m"]
+        parts = (pr.oty, s.dta, s.u_scale, s.dtu)
+        time_call("gram_residual_tiled_2d", f"{name.split()[0]} fused",
+                  lambda: K.gram_residual_tiled_2d(None, s.theta, pr.counts, s.rho, sc,
+                                                   rhs_parts=parts), m)
+        time_call("gram_matvec_tiled_2d", name.split()[0],
+                  lambda: K.gram_matvec_tiled_2d(s.theta, pr.counts, s.rho, sc), m)
+        del I, s, pr, parts
     saved = admm.WHOLE_MAX_KNOTS
     admm.WHOLE_MAX_KNOTS = SHARD_HALF[1][0] * SHARD_HALF[1][1] // 2
     try:
@@ -2718,6 +2849,17 @@ SHARD_FIT2 = ((1024, 1024), 1 << 20)
 SHARD_FIT2_LAMBDAS = 3
 # The folds = 2 fit's lattice as a tiled_inputs workload for the slab check.
 SHARD_HALF = (lambda: bench_data(1 << 20), (1024, 1024), 0.05)
+# compare_shard's cuts, each a tuple of slab row counts from the top: on
+# 2048^2 SHARD_SLABS even slabs, np.array_split's 3 uneven ones (683, 683,
+# 682) and the one-rank slab; on 1024^2 the one-rank slab and 5-row slabs
+# at row_off 1014 (both halos real) and 1019 (the global edge below).
+SHARD_CUTS = ((tuple(len(a) for a in np.array_split(np.arange(2048), SHARD_SLABS)),
+               tuple(len(a) for a in np.array_split(np.arange(2048), 3)), (2048,)),
+              ((1024,), (1014, 5, 5)))
+# The 2048^2 state's first SHARD_NARROW columns, a lattice of its own whose
+# rows are not 16-byte aligned: the row march's 4-byte path, cut as the
+# 3 uneven slabs.
+SHARD_NARROW = 2046
 REPAIRED = (("16384x256 n=2^22 (C1)", (16384, 256), lambda: bench_data(1 << 22)),
             ("16^4 n=2^18 (C2)", (16, 16, 16, 16), lambda: quad_data(1 << 18)))
 
@@ -2727,16 +2869,15 @@ def rel_max(got, ref) -> float:
     return float((got.double() - ref.double()).abs().max() / ref.double().abs().max())
 
 
-def slab_halos(xs, r: int, rows: int, depth: int = 8):
-    """(tops, bots): the depth rows above and below row slab r (of `rows`
-    rows) of each lattice of xs, cut from the neighbouring slabs, zeros at
-    the global edges (the JAX package's 8-row halo arrays)."""
+def slab_halos(xs, lo: int, hi: int, depth: int = 8):
+    """(tops, bots): up to depth rows above and below the row slab lo .. hi
+    - 1 of each lattice of xs, cut from the neighbouring rows, zeros at the
+    global edges (the JAX package's 8-row halo arrays)."""
     import torch
     tops, bots = [], []
     for x in xs:
         z = torch.zeros((depth, x.shape[1]), dtype=x.dtype, device=x.device)
-        lo, hi = r * rows, (r + 1) * rows
-        tops.append(x[lo - depth:lo].contiguous() if lo > 0 else z)
+        tops.append(x[max(lo - depth, 0):lo].contiguous() if lo > 0 else z)
         bots.append(x[hi:hi + depth].contiguous() if hi < x.shape[0] else z)
     return tops, bots
 
@@ -2744,19 +2885,21 @@ def slab_halos(xs, r: int, rows: int, depth: int = 8):
 def compare_shard(device, errs):
     """B8s (both compiled flag pairs, and with true_m = m - 1), B9s (fused
     and b given), its matvec mode and B11s on row slabs of the warm 2048^2
-    state (bench.py's data, tiled_inputs): SHARD_SLABS slabs, each with its
-    halos cut from its neighbours, and one slab (the main path's: the whole
-    lattice, row_off 0, both halos zero); and on one slab of the warm
-    1024^2 state of the folds = 2 fit's data (SHARD_HALF).  The slabs
-    together against B8, B9, B10 and B2's kernel on the same lattice
-    (SHARD_ELEMENT_TOL of max|x|, the Boyd sums SHARD_STATS_TOL relative),
-    and each slab against its plain version (1e-5 x max(1, |ref|)); records
-    the largest absolute errors against the plain versions in errs."""
+    state (bench.py's data, tiled_inputs) and of the warm 1024^2 state of
+    the folds = 2 fit's data (SHARD_HALF), cut as SHARD_CUTS says, and on
+    the 2048^2 state's first SHARD_NARROW columns, each slab with its halos
+    cut from its neighbours.  The slabs together against B8,
+    B9, B10 and B2's kernel on the same lattice (SHARD_ELEMENT_TOL of
+    max|x|, the Boyd sums SHARD_STATS_TOL relative), each slab against its
+    plain version (1e-5 x max(1, |ref|)), and on the one-rank slab (the
+    main path's: the whole lattice, row_off 0, both halos zero) B8s against
+    B8 bit for bit, the five sums included; records the largest absolute
+    errors against the plain versions in errs."""
     import torch
     from multivartv_tpu_torch.solver import admm
 
     saved = admm.WHOLE_MAX_KNOTS
-    for workload, slab_counts in ((None, (SHARD_SLABS, 1)), (SHARD_HALF, (1,))):
+    for workload, cuts in zip((None, SHARD_HALF), SHARD_CUTS):
         if workload is not None:      # 1024^2: the whole-lattice gate lowered for the build
             admm.WHOLE_MAX_KNOTS = workload[1][0] * workload[1][1] // 2
         try:
@@ -2766,17 +2909,25 @@ def compare_shard(device, errs):
         ops, pr, s, lam, m = I["ops"], I["problem"], I["s"], I["lam"], I["m"]
         lat = dict(theta=s.theta, u=s.u, oty=pr.oty, dta=s.dta, dtu=s.dtu, counts=pr.counts,
                    alpha=admm._refresh_alpha(ops, s, lam).alpha)
-        for slabs in slab_counts:
-            compare_slabs(f"{m[0]}x{m[1]} in {slabs} row slab{'s' * (slabs > 1)}", lat,
-                          (ops.scales, lam / s.rho, s.rho, s.u_scale), slabs, errs)
+        scal = (ops.scales, lam / s.rho, s.rho, s.u_scale)
+        for rows in cuts:
+            compare_slabs(f"{m[0]}x{m[1]} in row slabs {rows}", lat, scal, rows, errs)
+        if workload is None:
+            def narrow(x):
+                return x[:, :SHARD_NARROW].contiguous()
+            lat_n = {k: tuple(map(narrow, x)) if isinstance(x, tuple) else narrow(x)
+                     for k, x in lat.items()}
+            compare_slabs(f"{m[0]}x{SHARD_NARROW} in row slabs {cuts[1]}", lat_n, scal, cuts[1],
+                          errs)
+            del lat_n
         del I, s, lat
     torch.cuda.empty_cache()
 
 
-def compare_slabs(tag, lat, scal, slabs, errs):
+def compare_slabs(tag, lat, scal, rows, errs):
     """compare_shard's checks on one lattice (lat: theta, u, oty, dta, dtu,
-    counts, alpha; scal: scales, kappa, rho, u_scale) cut into `slabs` row
-    slabs."""
+    counts, alpha; scal: scales, kappa, rho, u_scale) cut into row slabs of
+    `rows` rows each, from the top."""
     import torch
     from multivartv_tpu_torch.ops import kernels as K
 
@@ -2784,10 +2935,12 @@ def compare_slabs(tag, lat, scal, slabs, errs):
         "theta", "u", "oty", "dta", "dtu", "counts", "alpha"))
     sc, kappa, rho, u_scale = scal
     m = tuple(theta.shape)
-    rows = m[0] // slabs
+    assert sum(rows) == m[0]
+    bounds = np.cumsum((0,) + tuple(rows)).tolist()
+    slabs = list(zip(bounds[:-1], bounds[1:]))
 
     def cut(x, r):
-        return x[r * rows:(r + 1) * rows]
+        return x[slabs[r][0]:slabs[r][1]]
 
     def note(kernel, got, ref):
         e = max(float((g.double() - r.double()).abs().max()) for g, r in zip(got, ref))
@@ -2804,9 +2957,9 @@ def compare_slabs(tag, lat, scal, slabs, errs):
         whole = K.dual_update_tiled_2d(theta, u, kappa, sc, u_scale, tm, want_adj, want_alpha)
         lat_w = (*(whole[0] or ()), *whole[1], *whole[3:])
         got, stats, worst = [], 0.0, 0.0
-        for r in range(slabs):
-            tops, bots = slab_halos((theta, *u), r, rows)
-            args = (cut(theta, r), tuple(cut(w, r) for w in u), tops, bots, r * rows, m[0],
+        for r, (lo, hi) in enumerate(slabs):
+            tops, bots = slab_halos((theta, *u), lo, hi)
+            args = (cut(theta, r), tuple(cut(w, r) for w in u), tops, bots, lo, m[0],
                     kappa, sc, u_scale, tm, want_adj, want_alpha)
             k_out = K.dual_update_tiled_2d_shard(*args)
             p_out = K.dual_update_tiled_2d_shard_reference(*args)
@@ -2826,17 +2979,21 @@ def compare_slabs(tag, lat, scal, slabs, errs):
         e = float(((stats - whole[2].double()).abs() / whole[2].double().abs()).max())
         check(e <= SHARD_STATS_TOL, f"{label} {tag}: the slabs' Boyd sums vs the whole "
               f"lattice's, rel {e:.3e} <= {SHARD_STATS_TOL:g}")
+        if len(slabs) == 1:
+            same = all(torch.equal(g, w) for g, w in zip(got[0], lat_w))
+            check(same and torch.equal(k_out[2], whole[2]), f"{label} {tag}: the one-rank "
+                  "slab equals B8 bit for bit (every array and the five sums)")
 
     parts = (oty, dta, u_scale, dtu)
     b = oty + rho * (dta + u_scale * dtu)
     for label, bb, rp in (("fused rhs", None, parts), ("b given", b, None)):
         whole = K.gram_residual_tiled_2d(bb, theta, counts, rho, sc, rhs_parts=rp)
         got, worst = [], 0.0
-        for r in range(slabs):
-            (top,), (bot,) = slab_halos((theta,), r, rows)
+        for r, (lo, hi) in enumerate(slabs):
+            (top,), (bot,) = slab_halos((theta,), lo, hi)
             rp_r = None if rp is None else (cut(oty, r), cut(dta, r), u_scale, cut(dtu, r))
-            args = (None if bb is None else cut(bb, r), cut(theta, r), top, bot, r * rows,
-                    m[0], cut(counts, r), rho, sc)
+            args = (None if bb is None else cut(bb, r), cut(theta, r), top, bot, lo, m[0],
+                    cut(counts, r), rho, sc)
             k_out = K.gram_residual_tiled_2d_shard(*args, rhs_parts=rp_r)
             p_out = K.gram_residual_tiled_2d_shard_reference(*args, rhs_parts=rp_r)
             torch.cuda.synchronize()
@@ -2848,9 +3005,9 @@ def compare_slabs(tag, lat, scal, slabs, errs):
 
     whole = K.gram_matvec_tiled_2d(theta, counts, rho, sc)
     got, worst = [], 0.0
-    for r in range(slabs):
-        (top,), (bot,) = slab_halos((theta,), r, rows)
-        args = (cut(theta, r), top, bot, r * rows, m[0], cut(counts, r), rho, sc)
+    for r, (lo, hi) in enumerate(slabs):
+        (top,), (bot,) = slab_halos((theta,), lo, hi)
+        args = (cut(theta, r), top, bot, lo, m[0], cut(counts, r), rho, sc)
         k_out = K.gram_matvec_tiled_2d_shard(*args)
         p_out = K.gram_matvec_tiled_2d_shard_reference(*args)
         torch.cuda.synchronize()
@@ -2862,10 +3019,10 @@ def compare_slabs(tag, lat, scal, slabs, errs):
 
     whole = K.rhs_tiled_2d(alpha, u, oty, rho, u_scale, sc)
     got, worst = [], 0.0
-    for r in range(slabs):
-        tops, bots = slab_halos((*alpha, *u), r, rows)
+    for r, (lo, hi) in enumerate(slabs):
+        tops, bots = slab_halos((*alpha, *u), lo, hi)
         args = (tuple(cut(a, r) for a in alpha), tuple(cut(w, r) for w in u), tops, bots,
-                r * rows, cut(oty, r), rho, u_scale, sc)
+                lo, cut(oty, r), rho, u_scale, sc)
         k_out = K.rhs_tiled_2d_shard(*args)
         p_out = K.rhs_tiled_2d_shard_reference(*args)
         torch.cuda.synchronize()
@@ -3072,9 +3229,10 @@ def phase_timing_shard(device):
         def cut(x):
             return x[r * rows:(r + 1) * rows]
 
-        tops, bots = slab_halos((s.theta, *s.u), r, rows)
-        (vt,), (vb,) = slab_halos((s.theta,), r, rows)
-        atops, abots = slab_halos((*alpha, *s.u), r, rows)
+        lo, hi = r * rows, (r + 1) * rows
+        tops, bots = slab_halos((s.theta, *s.u), lo, hi)
+        (vt,), (vb,) = slab_halos((s.theta,), lo, hi)
+        atops, abots = slab_halos((*alpha, *s.u), lo, hi)
         u_r, a_r = tuple(cut(w) for w in s.u), tuple(cut(a) for a in alpha)
         dual = (cut(s.theta), u_r, tops, bots, r * rows, m[0], kappa, sc, s.u_scale, None, True,
                 False)

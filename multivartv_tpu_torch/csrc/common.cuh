@@ -84,6 +84,8 @@ __device__ __forceinline__ size_t counts_offset(const Batch& bt) {
 __device__ __forceinline__ int dec(int i, int m) { return i == 0 ? m - 1 : i - 1; }
 __device__ __forceinline__ int inc(int i, int m) { return i == m - 1 ? 0 : i + 1; }
 __device__ __forceinline__ float edge(int i, int m) { return i < m - 1 ? 1.f : 0.f; }
+// i in [-m, 2m) wrapped into [0, m), as jnp.roll wraps.
+__device__ __forceinline__ int wrap1(int i, int m) { return i < 0 ? i + m : (i >= m ? i - m : i); }
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -124,6 +126,11 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
 }
+// 16 bytes global -> shared, both 16-byte aligned (the row march of tiled.cu).
+__device__ __forceinline__ void cp_async16f(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
 __device__ __forceinline__ void cp_async4_commit() { asm volatile("cp.async.commit_group;\n"); }
 template <int N>
 __device__ __forceinline__ void cp_async4_wait() {
@@ -135,6 +142,10 @@ __device__ __forceinline__ void cp_async4_wait() {
 // the neighbours' boundary rows, the halo rows (zeros at the global edges).
 struct Slab {
   int row_off, m0g;
+};
+// B8s's halo rows: theta's above and below the slab, u's above it.
+struct DualHalo {
+  const float *th_top, *th_bot, *u0_top, *u1_top, *u2_top;
 };
 
 __device__ __forceinline__ const float* slab_row(const float* x, const float* top,
@@ -186,12 +197,15 @@ int launch_residual(ResidualMode mode, const float* b, const float* x, const flo
 // want_alpha a0..a2 may be null; with want_adjoints it also writes dta =
 // D'alpha and dtu = D'u_new (B8's flags, tiled.cu).  Exactly one of the
 // two flags is set (the pairs that a route launches); any other pair
-// returns cudaErrorInvalidValue.
+// returns cudaErrorInvalidValue.  With halo given the lattice is the row
+// slab sl (B8s, one problem): rows -1 and m0 come from the halo rows and
+// every row mask is global; without it, rows wrap (B1, B4/B5, B8).
 int launch_dual(bool want_alpha, bool want_adjoints, const float* theta, const float* u0,
                 const float* u1, const float* u2, const float* kappa, const float* uscale,
                 float* scal, Scales sc, int t0, int t1, float* a0, float* a1, float* a2,
                 float* un0, float* un1, float* un2, float* dta, float* dtu, float* partials,
-                unsigned* tickets, Lat L, Batch bt, cudaStream_t s);
+                unsigned* tickets, Lat L, Batch bt, cudaStream_t s,
+                const DualHalo* halo = nullptr, Slab sl = Slab{0, 0});
 
 // xupdate.cu: PCG of B3 from an already formed residual r (in work[0]).
 struct PcgBuffers {

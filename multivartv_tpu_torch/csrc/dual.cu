@@ -41,18 +41,22 @@
 // !kWantAlpha skips the three alpha stores, which nothing reads on that
 // route.  B1 and B4/B5's chain are <true, false>.
 //
-// dual_shard_kernel is B8s (pallas_kernels.py:dual_update_tiled_2d_shard,
-// _tiled_dual_kernel with sharded=True): the same stage on one rank's row
-// slab of a lattice cut into row slabs.  Row -1 of theta and u comes from
-// the top halo rows (the previous rank's last rows) and row m0_local of
-// theta from the bottom one (the next rank's first row); every mask uses
-// the global row, so the rows above global row 0 and the global last row
-// are masked as the TPU kernel masks them, and the true_m masks are global.
-// It keeps the first design: one thread per knot, recomputing the prox at
-// its three upstream neighbours (at local row 0 from the halo rows), five
-// block sums and a finish pass.  The five sums are this slab's partial
-// sums; the caller all-reduces them over the ranks.  Bound: as B8, plus
-// the five halo rows read (theta above and below, u above).
+// A third, kSlab, makes it B8s (pallas_kernels.py:dual_update_tiled_2d_shard,
+// _tiled_dual_kernel with sharded=True): the same march on one rank's row
+// slab of a lattice cut into row slabs, in one launch.  Only the rows a tile
+// copies and the row masks change.  Local row -1 of theta and u comes from
+// the top halo rows (the previous rank's last rows) and row m0 of theta from
+// the bottom one (the next rank's first row), where B1 wraps; only the
+// slab's first and last tiles reach those rows and choose a source per
+// copied point, the others copy the slab's own rows, and no neighbour read
+// chooses one.  Every mask uses the global row row_off + i (edge_global,
+// valid_global, and the true_m masks), so the rows above global row 0 and
+// the global last row are masked as the TPU kernel masks them.  The five
+// sums are this slab's partial sums, added by the last CTA as B8's; the
+// caller all-reduces them over the ranks.  The march's CTA count depends on
+// the slab's shape alone, so on a one-rank slab (the whole lattice, zero
+// halos) B8s sums in B8's order and equals it bit for bit.  Bound: as B8,
+// plus the five halo rows read (theta above and below, u above).
 #include "common.cuh"
 
 namespace mvtv {
@@ -92,20 +96,6 @@ __device__ __forceinline__ DualPt dual_point(float th00, float th01, float th10,
     q.un[b] = ue[b] + q.r[b];
   }
   return q;
-}
-
-// dual_point at column c of a row from theta's rows th_r (this one) and
-// th_n (the next) and u's row; e0, valid and g as dual_point's.
-__device__ __forceinline__ DualPt dual_rows(const float* __restrict__ th_r,
-                                            const float* __restrict__ th_n,
-                                            const float* __restrict__ u0r,
-                                            const float* __restrict__ u1r,
-                                            const float* __restrict__ u2r, int c, int m1,
-                                            float e0, float valid, int g, Scales sc,
-                                            float kappa, float us, int t0, int t1) {
-  const int cp = inc(c, m1);
-  return dual_point(th_r[c], th_r[cp], th_n[c], th_n[cp], u0r[c], u1r[c], u2r[c], c, e0,
-                    edge(c, m1), valid, g, sc, kappa, us, t0, t1);
 }
 
 // The outputs and the five sums at the element with flat index oc (global
@@ -158,26 +148,12 @@ __device__ __forceinline__ void dual_store(const DualPt& p00, const DualPt& pm0,
   }
 }
 
-// The block's five partial sums, one row per statistic (B8s).
-__device__ __forceinline__ void store_partials(const float st[5], float* __restrict__ partials) {
-  const int nblocks = gridDim.x * gridDim.y;
-  const int blk = blockIdx.y * gridDim.x + blockIdx.x;
-#pragma unroll
-  for (int v = 0; v < 5; ++v) {
-    const float tot = block_sum(st[v]);
-    if (threadIdx.x == 0 && threadIdx.y == 0) partials[v * nblocks + blk] = tot;
-  }
-}
-
 // dual_tile_kernel's tile: TX x TY knots; stage points (the tile and its
 // upstream halo) kSH rows of kSW, point (a, c) at global (i0 - 1 + a,
 // j0 - 1 + c); theta points one more row and column on the far side.
 constexpr int kSW = TX + 1, kSH = TY + 1, kSPts = kSW * kSH;
 constexpr int kTW = TX + 2, kTPts = kTW * (TY + 2);
 constexpr int kWarps = kThreads / 32;
-
-// i in [-m, 2m) wrapped into [0, m), as jnp.roll wraps.
-__device__ __forceinline__ int wrap1(int i, int m) { return i < 0 ? i + m : (i >= m ? i - m : i); }
 
 // The sums x[0..4] over the CTA's threads in block_sum's fixed order (warp
 // shuffles, then the warps in order), valid in thread 0; ws is shared
@@ -198,7 +174,7 @@ __device__ __forceinline__ void cta_sum5(float (&x)[5], float (*ws)[5], int tid)
     }
 }
 
-template <bool kWantAlpha, bool kWantAdjoints>
+template <bool kWantAlpha, bool kWantAdjoints, bool kSlab>
 __global__ void __launch_bounds__(kThreads)
 dual_tile_kernel(const float* __restrict__ theta, const float* __restrict__ u0,
                  const float* __restrict__ u1, const float* __restrict__ u2,
@@ -206,7 +182,7 @@ dual_tile_kernel(const float* __restrict__ theta, const float* __restrict__ u0,
                  int t1, float* __restrict__ a0, float* __restrict__ a1, float* __restrict__ a2,
                  float* __restrict__ un0, float* __restrict__ un1, float* __restrict__ un2,
                  float* __restrict__ dta, float* __restrict__ dtu, float* partials,
-                 unsigned* tickets, int steps, Lat L, Batch bt) {
+                 unsigned* tickets, int steps, Lat L, Batch bt, DualHalo h, Slab sl) {
   constexpr int NV = kWantAdjoints ? 9 : 6;  // r, u_new (and alpha) of the 3 blocks
   __shared__ float th_s[2][kTPts];           // theta's tile and halo, a ring of two tiles
   __shared__ float u_s[2][3][kSPts];         // u at the stage points, likewise
@@ -223,23 +199,47 @@ dual_tile_kernel(const float* __restrict__ theta, const float* __restrict__ u0,
   const float kappa = kappa_p[scal_offset(bt)], us = us_p[scal_offset(bt)];
   // Tile row r (knot rows r TY ..) into ring slot r % 2: theta's points
   // and u at the stage points; points past the lattice's end are never
-  // read and not copied.
-  auto load = [&](int r) {
-    const int i0 = r * TY, slot = r & 1;
+  // read and not copied.  row_of(x, top, bot, row) is the source of local
+  // row `row` (-1 .. m0) of x.
+  auto copy = [&](int i0, int slot, auto row_of) {
     for (int idx = tid; idx < kTPts; idx += kThreads) {
       const int a = idx / kTW, c = idx % kTW;
       if (a <= L.m0 - i0 + 1 && c <= L.m1 - j0 + 1)
         cp_async4(&th_s[slot][idx],
-                  theta + size_t(wrap1(i0 - 1 + a, L.m0)) * L.m1 + wrap1(j0 - 1 + c, L.m1));
+                  row_of(theta, h.th_top, h.th_bot, i0 - 1 + a) + wrap1(j0 - 1 + c, L.m1));
     }
     for (int idx = tid; idx < kSPts; idx += kThreads) {
       const int a = idx / kSW, c = idx % kSW;
       if (a <= L.m0 - i0 && c <= L.m1 - j0) {
-        const size_t g = size_t(wrap1(i0 - 1 + a, L.m0)) * L.m1 + wrap1(j0 - 1 + c, L.m1);
-#pragma unroll
-        for (int k = 0; k < 3; ++k) cp_async4(&u_s[slot][k][idx], uk[k] + g);
+        const int row = i0 - 1 + a, col = wrap1(j0 - 1 + c, L.m1);
+        cp_async4(&u_s[slot][0][idx], row_of(uk[0], h.u0_top, nullptr, row) + col);
+        cp_async4(&u_s[slot][1][idx], row_of(uk[1], h.u1_top, nullptr, row) + col);
+        cp_async4(&u_s[slot][2][idx], row_of(uk[2], h.u2_top, nullptr, row) + col);
       }
     }
+  };
+  // The rows wrapped as jnp.roll wraps (a whole lattice); in slab mode a
+  // slab's own rows, and at -1 and m0 its halo rows, which only the slab's
+  // first and last tiles reach: the others copy without choosing.  (Whole
+  // lattices keep the one wrapped copy: a third copy path there took B8 to
+  // 78 registers and 3 CTAs per SM, 3 % slower on an H100.)
+  auto wrapped = [&](const float* x, const float*, const float*, int row) {
+    return x + size_t(wrap1(row, L.m0)) * L.m1;
+  };
+  auto with_halo = [&](const float* x, const float* top, const float* bot, int row) {
+    return slab_row(x, top, bot, row, L);
+  };
+  auto own = [&](const float* x, const float*, const float*, int row) {
+    return x + size_t(row) * L.m1;
+  };
+  auto load = [&](int r) {
+    const int i0 = r * TY, slot = r & 1;
+    if (!kSlab)
+      copy(i0, slot, wrapped);
+    else if (i0 == 0 || i0 + TY >= L.m0)
+      copy(i0, slot, with_halo);
+    else
+      copy(i0, slot, own);
   };
   // This thread's knot (a, c) = (ty + 1, tx + 1) of a tile, and its halo
   // point: the first kSW threads take row i0 - 1, the next TY column j0 - 1.
@@ -257,14 +257,17 @@ dual_tile_kernel(const float* __restrict__ theta, const float* __restrict__ u0,
     const int i0 = r * TY, slot = r & 1, i = i0 + threadIdx.y;
     const bool own = i < L.m0 && j < L.m1;
     const bool halo = tid < kSW + TY && i0 - 1 + ha < L.m0 && j0 - 1 + hc < L.m1;
-    // The stage at point (a, c), global (row, col); its r, u_new (and
-    // alpha) go to shared memory.
-    auto stage = [&](int a, int c, int row, int col) {
+    // The stage at point (a, c), global row g, column col; its r, u_new
+    // (and alpha) go to shared memory.  g is row_off + the local row in
+    // slab mode, where the rows above the lattice have `valid` = 0, and
+    // the wrapped row otherwise.
+    auto stage = [&](int a, int c, int g, int col) {
+      const float e0 = kSlab ? edge_global(g, sl.m0g) : edge(g, L.m0);
       const float* tq = &th_s[slot][a * kTW + c];
       const int pt = a * kSW + c;
       const DualPt q = dual_point(tq[0], tq[1], tq[kTW], tq[kTW + 1], u_s[slot][0][pt],
-                                  u_s[slot][1][pt], u_s[slot][2][pt], col, edge(row, L.m0),
-                                  edge(col, L.m1), 1.f, row, sc, kappa, us, t0, t1);
+                                  u_s[slot][1][pt], u_s[slot][2][pt], col, e0, edge(col, L.m1),
+                                  kSlab ? valid_global(g) : 1.f, g, sc, kappa, us, t0, t1);
 #pragma unroll
       for (int b = 0; b < 3; ++b) {
         sv_s[b][pt] = q.r[b];
@@ -274,8 +277,9 @@ dual_tile_kernel(const float* __restrict__ theta, const float* __restrict__ u0,
       return q;
     };
     DualPt p00;
-    if (own) p00 = stage(threadIdx.y + 1, threadIdx.x + 1, i, j);
-    if (halo) stage(ha, hc, wrap1(i0 - 1 + ha, L.m0), hcol);
+    if (own) p00 = stage(threadIdx.y + 1, threadIdx.x + 1, kSlab ? sl.row_off + i : i, j);
+    if (halo)
+      stage(ha, hc, kSlab ? sl.row_off + i0 - 1 + ha : wrap1(i0 - 1 + ha, L.m0), hcol);
     __syncthreads();
     if (own) {
       const int pt = (threadIdx.y + 1) * kSW + threadIdx.x + 1;
@@ -291,8 +295,9 @@ dual_tile_kernel(const float* __restrict__ theta, const float* __restrict__ u0,
       };
       float sk[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
       dual_store<kWantAlpha, kWantAdjoints>(p00, at(pt - kSW), at(pt - 1), at(pt - kSW - 1),
-                                            off + size_t(i) * L.m1 + j, i, j, t0, t1, sc, a0,
-                                            a1, a2, un0, un1, un2, dta, dtu, sk);
+                                            off + size_t(i) * L.m1 + j,
+                                            kSlab ? sl.row_off + i : i, j, t0, t1, sc, a0, a1,
+                                            a2, un0, un1, un2, dta, dtu, sk);
 #pragma unroll
       for (int v = 0; v < 5; ++v) st[v] += sk[v];
     }
@@ -327,45 +332,6 @@ dual_tile_kernel(const float* __restrict__ theta, const float* __restrict__ u0,
   }
 }
 
-// B8s; the halo rows: theta's above and below the slab, u's above it.
-struct DualHalo {
-  const float *th_top, *th_bot, *u0_top, *u1_top, *u2_top;
-};
-
-template <bool kWantAlpha, bool kWantAdjoints>
-__global__ void __launch_bounds__(kThreads)
-dual_shard_kernel(const float* __restrict__ theta, const float* __restrict__ u0,
-                  const float* __restrict__ u1, const float* __restrict__ u2, DualHalo h,
-                  const float* __restrict__ scal, Scales sc, int t0, int t1, Slab sl,
-                  float* __restrict__ a0, float* __restrict__ a1, float* __restrict__ a2,
-                  float* __restrict__ un0, float* __restrict__ un1, float* __restrict__ un2,
-                  float* __restrict__ dta, float* __restrict__ dtu,
-                  float* __restrict__ partials, Lat L) {
-  const int j = blockIdx.x * TX + threadIdx.x;
-  const int i = blockIdx.y * TY + threadIdx.y;
-  float st[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  if (i < L.m0 && j < L.m1) {
-    const float kappa = scal[S_KAPPA], us = scal[S_USCALE];
-    // The stage at local row r in [-1, m0): theta's rows r and r + 1 and
-    // u's row r, from the slab or its halo rows.
-    auto at = [&](int r, int c) {
-      const int g = sl.row_off + r;
-      return dual_rows(slab_row(theta, h.th_top, h.th_bot, r, L),
-                       slab_row(theta, h.th_top, h.th_bot, r + 1, L),
-                       slab_row(u0, h.u0_top, nullptr, r, L),
-                       slab_row(u1, h.u1_top, nullptr, r, L),
-                       slab_row(u2, h.u2_top, nullptr, r, L), c, L.m1,
-                       edge_global(g, sl.m0g), valid_global(g), g, sc, kappa, us, t0, t1);
-    };
-    const int jm = dec(j, L.m1);
-    const DualPt p00 = at(i, j), pm0 = at(i - 1, j), p0m = at(i, jm), pmm = at(i - 1, jm);
-    dual_store<kWantAlpha, kWantAdjoints>(p00, pm0, p0m, pmm, size_t(i) * L.m1 + j,
-                                          sl.row_off + i, j, t0, t1, sc, a0, a1, a2, un0,
-                                          un1, un2, dta, dtu, st);
-  }
-  store_partials(st, partials);
-}
-
 // Tiles per CTA: about 256 CTAs per problem (two per SM), at most
 // kDualSteps tiles each; fewer, longer marches measured faster than one
 // tile per CTA at 512^2 to 2048^2 (fewer partials, each tile's copies
@@ -382,21 +348,30 @@ int launch_dual(bool want_alpha, bool want_adjoints, const float* theta, const f
                 const float* u1, const float* u2, const float* kappa, const float* uscale,
                 float* scal, Scales sc, int t0, int t1, float* a0, float* a1, float* a2,
                 float* un0, float* un1, float* un2, float* dta, float* dtu, float* partials,
-                unsigned* tickets, Lat L, Batch bt, cudaStream_t s) {
+                unsigned* tickets, Lat L, Batch bt, cudaStream_t s, const DualHalo* halo,
+                Slab sl) {
   const int steps = dual_steps(L);
   const dim3 grid((L.m1 + TX - 1) / TX, ((L.m0 + TY - 1) / TY + steps - 1) / steps, bt.B);
   const dim3 block(TX, TY);
-#define MVTV_DUAL(WA, WD)                                                                   \
-  dual_tile_kernel<WA, WD><<<grid, block, 0, s>>>(theta, u0, u1, u2, kappa, uscale, scal, sc, \
-                                                  t0, t1, a0, a1, a2, un0, un1, un2, dta,     \
-                                                  dtu, partials, tickets, steps, L, bt)
+  const DualHalo h = halo != nullptr ? *halo : DualHalo{};
+#define MVTV_DUAL(WA, WD, SL)                                                           \
+  dual_tile_kernel<WA, WD, SL><<<grid, block, 0, s>>>(theta, u0, u1, u2, kappa, uscale, \
+                                                      scal, sc, t0, t1, a0, a1, a2, un0, \
+                                                      un1, un2, dta, dtu, partials,      \
+                                                      tickets, steps, L, bt, h, sl)
   // Only the pairs a route launches are compiled: B1's (alpha, no carries)
-  // and the tiled ADMM loop's (carries, no alpha).
-  if (want_alpha == want_adjoints) return int(cudaErrorInvalidValue);
-  if (want_alpha)
-    MVTV_DUAL(true, false);
+  // and the tiled ADMM loop's (carries, no alpha), each on a whole lattice
+  // and on a row slab of one problem.
+  if (want_alpha == want_adjoints || (halo != nullptr && bt.B != 1))
+    return int(cudaErrorInvalidValue);
+  if (want_alpha && halo != nullptr)
+    MVTV_DUAL(true, false, true);
+  else if (want_alpha)
+    MVTV_DUAL(true, false, false);
+  else if (halo != nullptr)
+    MVTV_DUAL(false, true, true);
   else
-    MVTV_DUAL(false, true);
+    MVTV_DUAL(false, true, false);
 #undef MVTV_DUAL
   MVTV_LAUNCHED();
   return 0;
@@ -426,35 +401,25 @@ extern "C" int mvtv_dual_update_2d(const float* theta, const float* u0, const fl
 
 // B8s entry point: the stage of B8 on the (m0, m1) slab whose row 0 is global
 // row row_off of m0g, with the halo rows th_top, th_bot (theta's rows above
-// and below the slab) and u0_top .. u2_top (u's row above).  Outputs as
-// mvtv_dual_update_tiled_2d's; the 5 statistics in scal[S_STATS ..] are this
-// slab's partial sums.
+// and below the slab) and u0_top .. u2_top (u's row above), one launch.
+// Outputs, partials, tickets and scal as mvtv_dual_update_tiled_2d's; the 5
+// statistics in scal[S_STATS ..] are this slab's partial sums.
 extern "C" int mvtv_dual_update_tiled_2d_shard(
     const float* theta, const float* u0, const float* u1, const float* u2, const float* th_top,
     const float* th_bot, const float* u0_top, const float* u1_top, const float* u2_top,
     const float* kappa, const float* uscale, float s_mix, float s_ax1, float s_ax0, int t0,
     int t1, int row_off, int m0g, int want_alpha, int want_adjoints, float* alpha_out,
-    float* u_out, float* dta, float* dtu, float* partials, float* scal, int m0, int m1,
-    void* stream) {
+    float* u_out, float* dta, float* dtu, float* partials, unsigned* tickets, float* scal,
+    int m0, int m1, void* stream) {
   using namespace mvtv;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((want_alpha != 0) == (want_adjoints != 0)) return int(cudaErrorInvalidValue);
-  const Lat L{m0, m1};
   const size_t n = size_t(m0) * m1;
-  const Scales sc{s_mix, s_ax1, s_ax0};
-  const DualHalo h{th_top, th_bot, u0_top, u1_top, u2_top};
-  const Slab sl{row_off, m0g};
-  const dim3 grid = stencil_grid(L), block(TX, TY);
-  MVTV_CHECK(launch_init_scalars(scal, nullptr, nullptr, uscale, nullptr, kappa, kOne, s));
+  float* a[3] = {nullptr, nullptr, nullptr};
   if (want_alpha)
-    dual_shard_kernel<true, false><<<grid, block, 0, s>>>(
-        theta, u0, u1, u2, h, scal, sc, t0, t1, sl, alpha_out, alpha_out + n,
-        alpha_out + 2 * n, u_out, u_out + n, u_out + 2 * n, nullptr, nullptr, partials, L);
-  else
-    dual_shard_kernel<false, true><<<grid, block, 0, s>>>(
-        theta, u0, u1, u2, h, scal, sc, t0, t1, sl, nullptr, nullptr, nullptr, u_out,
-        u_out + n, u_out + 2 * n, dta, dtu, partials, L);
-  MVTV_LAUNCHED();
-  MVTV_CHECK(launch_finish(partials, stencil_blocks(L), 5, scal + S_STATS, kOne, s));
+    for (int k = 0; k < 3; ++k) a[k] = alpha_out + k * n;
+  const DualHalo h{th_top, th_bot, u0_top, u1_top, u2_top};
+  MVTV_CHECK(launch_dual(want_alpha != 0, want_adjoints != 0, theta, u0, u1, u2, kappa, uscale,
+                         scal, Scales{s_mix, s_ax1, s_ax0}, t0, t1, a[0], a[1], a[2], u_out,
+                         u_out + n, u_out + 2 * n, dta, dtu, partials, tickets, Lat{m0, m1},
+                         kOne, static_cast<cudaStream_t>(stream), &h, Slab{row_off, m0g}));
   return int(cudaGetLastError());
 }

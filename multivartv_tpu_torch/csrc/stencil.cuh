@@ -10,20 +10,20 @@
 
 namespace mvtv {
 
-// sum_b g_b adj_b(fwd_b(v)) at column j of row r0, with rm and rp the rows
-// above and below, in _gram_matvec_kernel's order:
-// g_ax1 adj1(d1) + g_ax0 adj0(d0) + g_mix adj0(adj1(dm)).  e0m and e00 mask
-// the axis-0 differences taken at the row above and at this row.
-__device__ __forceinline__ float gram_rows(const float* __restrict__ rm,
+// sum_b g_b adj_b(fwd_b(v)) at column c of row r0, with rm and rp the rows
+// above and below and cm, cp the columns left and right of c, in
+// _gram_matvec_kernel's order: g_ax1 adj1(d1) + g_ax0 adj0(d0) + g_mix
+// adj0(adj1(dm)).  e1m and e10 mask the axis-1 differences taken at the
+// column left of the knot and at its own; e0m and e00 the axis-0 ones taken
+// at the row above and at this row.
+__device__ __forceinline__ float gram_cols(const float* __restrict__ rm,
                                            const float* __restrict__ r0,
-                                           const float* __restrict__ rp, int j, int m1,
-                                           float e0m, float e00, float g_mix, float g_ax1,
-                                           float g_ax0) {
-  const int jm = dec(j, m1), jp = inc(j, m1);
-  const float v_mm = rm[jm], v_m0 = rm[j], v_mp = rm[jp];
-  const float v_0m = r0[jm], v_00 = r0[j], v_0p = r0[jp];
-  const float v_pm = rp[jm], v_p0 = rp[j], v_pp = rp[jp];
-  const float e1m = edge(jm, m1), e10 = edge(j, m1);
+                                           const float* __restrict__ rp, int cm, int c, int cp,
+                                           float e1m, float e10, float e0m, float e00,
+                                           float g_mix, float g_ax1, float g_ax0) {
+  const float v_mm = rm[cm], v_m0 = rm[c], v_mp = rm[cp];
+  const float v_0m = r0[cm], v_00 = r0[c], v_0p = r0[cp];
+  const float v_pm = rp[cm], v_p0 = rp[c], v_pp = rp[cp];
   // d0[r, c] = (v[r+1, c] - v[r, c]) * edge0(r)
   const float d0_mm = (v_0m - v_mm) * e0m, d0_m0 = (v_00 - v_m0) * e0m;
   const float d0_mp = (v_0p - v_mp) * e0m;
@@ -38,6 +38,17 @@ __device__ __forceinline__ float gram_rows(const float* __restrict__ rm,
   const float adj0_d0 = d0_m0 - d0_00;
   const float adj01_dm = (dm_mm - dm_m0) - (dm_0m - dm_00);
   return g_ax1 * adj1_d1 + g_ax0 * adj0_d0 + g_mix * adj01_dm;
+}
+
+// gram_cols at column j of a lattice row of m1 (circular columns).
+__device__ __forceinline__ float gram_rows(const float* __restrict__ rm,
+                                           const float* __restrict__ r0,
+                                           const float* __restrict__ rp, int j, int m1,
+                                           float e0m, float e00, float g_mix, float g_ax1,
+                                           float g_ax0) {
+  const int jm = dec(j, m1);
+  return gram_cols(rm, r0, rp, jm, j, inc(j, m1), edge(jm, m1), edge(j, m1), e0m, e00, g_mix,
+                   g_ax1, g_ax0);
 }
 
 // gram_rows at (i, j) of a whole lattice (circular neighbours).

@@ -20,40 +20,188 @@
 //
 // The TPU kernels stream row panels of T <= 512 rows with 8-row halos
 // through VMEM (double-buffered manual DMA, _halo_copies/_halo_pingpong)
-// because a 2048^2 lattice does not fit VMEM.  None of that carries over:
-// B8 is B1's kernel (dual.cu: a march of 32 x 8 tiles, each with its halo
-// in shared memory, each stage once, one launch), and B9 and B10 run one
-// thread per knot reading its 3x3 neighbourhood straight from device
-// memory (neighbouring threads share the lines in L1/L2), as B2 does, so
-// the "tiled" kernels are the whole-lattice kernels launched on a larger
-// grid.  What the halo code taught stays: every value outside the lattice
-// is an explicit 0 under the padded-block convention (the edge() masks of
-// stencil.cuh), so a wrapped neighbour never leaks in.
+// because a 2048^2 lattice does not fit VMEM.  On the H100, B8 is B1's
+// kernel (dual.cu: a march of 32 x 8 tiles, each with its halo in shared
+// memory, each stage once, one launch) and B8s its slab mode.  B9s, the
+// slab matvec and B10 (on 16-byte aligned rows) are one row march
+// (gram_march_kernel), the TPU's row panels cut to one row: a CTA owns a
+// strip of kGW columns, each thread taking 4 adjacent ones (1 where rows
+// are not 16-byte aligned), and walks down a chunk of rows, keeping v's
+// rows i - 1, i and i + 1 (the strip and one column on each side, wrapped
+// as jnp.roll wraps) in a ring of shared-memory rows that cp.async fills
+// kGAhead rows ahead; the knots' other inputs (counts, and b or oty, dta
+// and dtu) stream through a ring of their own, as B13's plane march does
+// in 3-D.  So a CTA reads each v row of its chunk and the two around it
+// once, and each thread's 3 x 3 neighbourhoods come from shared memory.
+// On a slab the chunk's rows -1 and m0 are the halo rows v_top and v_bot
+// (the ring's first and last fills, the source chosen once per row) and
+// the axis-0 masks use the global row; on a whole lattice those rows wrap.
+// The chunk length follows the lattice's shape alone (about kGramCtas
+// CTAs), never the data.  B9, and B10 on other rows, keep
+// gram_knot_kernel: one thread per knot reading its neighbourhood from
+// device memory, as B2 does.  What the halo code taught stays: every value
+// outside the lattice is an explicit 0 under the padded-block convention
+// (the edge() masks of stencil.cuh), so a wrapped neighbour never leaks in.
 //
 // Bound on the H100: device-memory bandwidth, one pass each.  B8 with alpha
 // skipped reads theta and 3 u and writes 3 u_new, dta and dtu: 36 bytes per
 // knot (plus the five per-CTA partial sums, which its last CTA adds up).
 // B9 in fused mode reads v, counts, oty, dta and dtu and writes r0: 24
-// bytes per knot.  B10 reads v and counts and writes one lattice: 12 bytes
-// per knot.  The scalars (kappa, rho, u_scale) stay on the device.  B9 and
-// B10 have no shared-memory tiling of the neighbourhood yet.
+// bytes per knot; with b given 16.  B10 reads v and counts and writes one
+// lattice: 12 bytes per knot.  The scalars (kappa, rho, u_scale) stay on
+// the device.
 #include "stencil.cuh"
 
 namespace mvtv {
 
 enum GramMode : int { GRAM_MATVEC = 0, GRAM_RESIDUAL = 1, GRAM_RESIDUAL_FUSED = 2 };
 
+constexpr int kGW = 256;         // columns per strip
+constexpr int kGAhead = 3;       // rows a read runs ahead of the row it serves
+constexpr int kGRing = 8;        // v rows in the ring (>= kGAhead + 3, a power of two)
+constexpr int kGInRing = 4;      // input rows in theirs (>= kGAhead + 1, a power of two)
+constexpr int kGramCtas = 1024;  // CTAs a lattice is cut into, about 8 per SM
+
+__host__ __device__ constexpr int gram_inputs(int mode) {
+  return mode == GRAM_MATVEC ? 1 : (mode == GRAM_RESIDUAL ? 2 : 4);
+}
+
 // kSlab: the lattice is one rank's row slab (B9s and the slab matvec); its
 // rows -1 and m0 are v_top and v_bot, and the axis-0 masks use the global
-// row of sl.  Otherwise the neighbours are circular (B9, B10).
-template <int MODE, bool kSlab>
-__global__ void __launch_bounds__(kThreads)
-gram_tiled_kernel(const float* __restrict__ v, const float* __restrict__ v_top,
+// row of sl.  Otherwise the rows wrap (B10).  A thread takes kVec
+// adjacent columns (4: every row start and pointer 16-byte aligned, the
+// copies 16 bytes wide; else 1), the CTA at (x, y) a strip of kGW columns
+// and rows y rows ..  A ring row holds the strip's column j0 + c at 4 + c,
+// the columns left and right of it (wrapped) at 3 and 4 + the strip's
+// width.
+template <int MODE, bool kSlab, int kVec>
+__global__ void __launch_bounds__(kGW / kVec)
+gram_march_kernel(const float* __restrict__ v, const float* __restrict__ v_top,
                   const float* __restrict__ v_bot, const float* __restrict__ counts,
                   const float* __restrict__ b, const float* __restrict__ oty,
                   const float* __restrict__ dta, const float* __restrict__ dtu,
                   const float* __restrict__ rho_p, const float* __restrict__ us_p, Scales sc,
-                  Slab sl, float* __restrict__ out, Lat L) {
+                  Slab sl, float* __restrict__ out, Lat L, int rows) {
+  constexpr int NIN = gram_inputs(MODE);
+  constexpr int W = kGW;
+  __shared__ __align__(16) float v_s[kGRing][W + 8];      // v's rows, a ring
+  __shared__ __align__(16) float in_s[kGInRing][NIN][W];  // the knots' inputs, a ring
+  const int tid = threadIdx.x;
+  const int j0 = blockIdx.x * W, jt = j0 + tid * kVec;    // the strip's and this thread's
+  const int r0 = blockIdx.y * rows, r1 = min(r0 + rows, L.m0);
+  const bool knot_in = jt < L.m1;
+  const int width = min(W, L.m1 - j0);
+  // v's local row r (r0 - 1 .. r1) into its ring slot, the source chosen
+  // once per row.
+  auto load_v = [&](int r) {
+    if (r > r1) return;
+    const float* src = kSlab ? slab_row(v, v_top, v_bot, r, L)
+                             : v + size_t(wrap1(r, L.m0)) * L.m1;
+    float* dst = v_s[r & (kGRing - 1)];
+    if (knot_in) {
+      if (kVec == 4)
+        cp_async16f(dst + 4 + tid * 4, src + jt);
+      else
+        cp_async4(dst + 4 + tid, src + jt);
+    }
+    if (tid == 0) cp_async4(dst + 3, src + wrap1(j0 - 1, L.m1));
+    if (tid == 1) cp_async4(dst + 4 + width, src + wrap1(j0 + width, L.m1));
+  };
+  const float* const ins[4] = {counts, MODE == GRAM_RESIDUAL ? b : oty, dta, dtu};
+  // The knots' inputs at row r (r0 .. r1 - 1) into their ring slot.
+  auto load_in = [&](int r) {
+    if (!knot_in || r >= r1) return;
+    const size_t g = size_t(r) * L.m1 + jt;
+#pragma unroll
+    for (int k = 0; k < NIN; ++k) {
+      float* dst = &in_s[r & (kGInRing - 1)][k][tid * kVec];
+      if (kVec == 4)
+        cp_async16f(dst, ins[k] + g);
+      else
+        cp_async4(dst, ins[k] + g);
+    }
+  };
+  // kGAhead groups in flight: the first holds row r0's three v rows and
+  // inputs, each later one the v row and inputs kGAhead rows on.
+  load_v(r0 - 1);
+  load_v(r0);
+  load_v(r0 + 1);
+  load_in(r0);
+  cp_async4_commit();
+#pragma unroll
+  for (int a = 1; a < kGAhead; ++a) {
+    load_v(r0 + 1 + a);
+    load_in(r0 + a);
+    cp_async4_commit();
+  }
+  cp_async4_wait<kGAhead - 1>();
+  __syncthreads();
+  const float rho = *rho_p;
+  const float us = MODE == GRAM_RESIDUAL_FUSED ? *us_p : 0.f;
+  // rho * s^2 per block, as _tiled_gram_res_kernel's scalars.
+  const float g_mix = rho * (sc.mix * sc.mix);
+  const float g_ax1 = rho * (sc.ax1 * sc.ax1);
+  const float g_ax0 = rho * (sc.ax0 * sc.ax0);
+  // The axis-1 masks of this thread's columns: at the column left of each
+  // knot and at its own.
+  float e1m[kVec], e10[kVec];
+#pragma unroll
+  for (int q = 0; q < kVec; ++q) {
+    const int j = knot_in ? jt + q : 0;
+    e1m[q] = edge(dec(j, L.m1), L.m1);
+    e10[q] = edge(j, L.m1);
+  }
+  for (int i = r0; i < r1; ++i) {
+    load_v(i + 1 + kGAhead);
+    load_in(i + kGAhead);
+    cp_async4_commit();
+    if (knot_in) {
+      const int g = kSlab ? sl.row_off + i : i;
+      const float e0m = kSlab ? edge_global(g - 1, sl.m0g) : edge(dec(i, L.m0), L.m0);
+      const float e00 = kSlab ? edge_global(g, sl.m0g) : edge(i, L.m0);
+      // v at rows i - 1, i, i + 1 and columns jt - 1 .. jt + kVec.
+      float vm[kVec + 2], vc[kVec + 2], vp[kVec + 2];
+      const int c0 = 3 + tid * kVec;
+#pragma unroll
+      for (int q = 0; q < kVec + 2; ++q) {
+        vm[q] = v_s[(i - 1) & (kGRing - 1)][c0 + q];
+        vc[q] = v_s[i & (kGRing - 1)][c0 + q];
+        vp[q] = v_s[(i + 1) & (kGRing - 1)][c0 + q];
+      }
+      const float* in = &in_s[i & (kGInRing - 1)][0][tid * kVec];
+      float o[kVec];
+#pragma unroll
+      for (int q = 0; q < kVec; ++q) {
+        const float gv = gram_cols(vm, vc, vp, q, q + 1, q + 2, e1m[q], e10[q], e0m, e00,
+                                   g_mix, g_ax1, g_ax0);
+        const float av = in[q] * vc[q + 1] + gv;
+        o[q] = av;
+        if (MODE == GRAM_RESIDUAL) o[q] = in[W + q] - av;
+        if (MODE == GRAM_RESIDUAL_FUSED)
+          o[q] = in[W + q] + rho * (in[2 * W + q] + us * in[3 * W + q]) - av;
+      }
+      float* dst = out + size_t(i) * L.m1 + jt;
+      if (kVec == 4)
+        *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[kVec > 1 ? 1 : 0],
+                                                      o[kVec > 2 ? 2 : 0], o[kVec > 3 ? 3 : 0]);
+      else
+        dst[0] = o[0];
+    }
+    cp_async4_wait<kGAhead - 1>();
+    __syncthreads();
+  }
+}
+
+// B9, and B10 where the march's 16-byte path does not apply: one thread per
+// knot, its 3 x 3 neighbourhood read from device memory (neighbouring
+// threads share the lines in L1/L2).
+template <int MODE>
+__global__ void __launch_bounds__(kThreads)
+gram_knot_kernel(const float* __restrict__ v, const float* __restrict__ counts,
+                 const float* __restrict__ b, const float* __restrict__ oty,
+                 const float* __restrict__ dta, const float* __restrict__ dtu,
+                 const float* __restrict__ rho_p, const float* __restrict__ us_p, Scales sc,
+                 float* __restrict__ out, Lat L) {
   const int j = blockIdx.x * TX + threadIdx.x;
   const int i = blockIdx.y * TY + threadIdx.y;
   if (i >= L.m0 || j >= L.m1) return;
@@ -63,16 +211,7 @@ gram_tiled_kernel(const float* __restrict__ v, const float* __restrict__ v_top,
   const float g_mix = rho * (sc.mix * sc.mix);
   const float g_ax1 = rho * (sc.ax1 * sc.ax1);
   const float g_ax0 = rho * (sc.ax0 * sc.ax0);
-  float gv;
-  if (kSlab) {
-    const int g = sl.row_off + i;
-    gv = gram_rows(slab_row(v, v_top, v_bot, i - 1, L), v + size_t(i) * L.m1,
-                   slab_row(v, v_top, v_bot, i + 1, L), j, L.m1, edge_global(g - 1, sl.m0g),
-                   edge_global(g, sl.m0g), g_mix, g_ax1, g_ax0);
-  } else {
-    gv = gram_at(v, i, j, L, g_mix, g_ax1, g_ax0);
-  }
-  const float av = counts[c] * v[c] + gv;
+  const float av = counts[c] * v[c] + gram_at(v, i, j, L, g_mix, g_ax1, g_ax0);
   if (MODE == GRAM_MATVEC) {
     out[c] = av;
     return;
@@ -81,25 +220,67 @@ gram_tiled_kernel(const float* __restrict__ v, const float* __restrict__ v_top,
   out[c] = bv - av;
 }
 
+// Rows per CTA: the lattice cut into about kGramCtas CTAs of kGW columns.
+inline int gram_rows_per_cta(Lat L) {
+  const int strips = (L.m1 + kGW - 1) / kGW;
+  const int want = kGramCtas / strips < 1 ? 1 : kGramCtas / strips;
+  const int chunks = want < L.m0 ? want : L.m0;
+  return (L.m0 + chunks - 1) / chunks;
+}
+
+inline bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
+
+// One mode on a slab (the march) or on a whole lattice (the march for B10
+// on 16-byte aligned rows; B9, and B10 elsewhere, keep gram_knot_kernel,
+// which ran B9's fused mode 2 % faster than the march at 2048^2 on an
+// H100, PERF.md).  Only the kernels a route can launch are compiled.
+template <int MODE, bool kSlab>
+int launch_gram_mode(bool vec, const float* v, const float* v_top, const float* v_bot,
+                     const float* counts, const float* b, const float* oty, const float* dta,
+                     const float* dtu, const float* rho, const float* uscale, Scales sc, Slab sl,
+                     float* out, Lat L, cudaStream_t s) {
+  const int rows = gram_rows_per_cta(L);
+  const dim3 grid((L.m1 + kGW - 1) / kGW, (L.m0 + rows - 1) / rows);
+#define MVTV_MARCH(VEC)                                                                 \
+  gram_march_kernel<MODE, kSlab, VEC><<<grid, kGW / VEC, 0, s>>>(                       \
+      v, v_top, v_bot, counts, b, oty, dta, dtu, rho, uscale, sc, sl, out, L, rows)
+  if constexpr (kSlab) {
+    if (vec)
+      MVTV_MARCH(4);
+    else
+      MVTV_MARCH(1);
+  } else if constexpr (MODE == GRAM_MATVEC) {
+    if (vec)
+      MVTV_MARCH(4);
+    else
+      gram_knot_kernel<MODE><<<stencil_grid(L), dim3(TX, TY), 0, s>>>(v, counts, b, oty, dta, dtu,
+                                                                      rho, uscale, sc, out, L);
+  } else {
+    gram_knot_kernel<MODE><<<stencil_grid(L), dim3(TX, TY), 0, s>>>(v, counts, b, oty, dta, dtu,
+                                                                    rho, uscale, sc, out, L);
+  }
+#undef MVTV_MARCH
+  return int(cudaGetLastError());
+}
+
 template <bool kSlab>
 int launch_gram(int mode, const float* v, const float* v_top, const float* v_bot,
                 const float* counts, const float* b, const float* oty, const float* dta,
                 const float* dtu, const float* rho, const float* uscale, Scales sc, Slab sl,
                 float* out, Lat L, cudaStream_t s) {
-  const dim3 grid = stencil_grid(L), block(TX, TY);
-#define MVTV_GRAM(MODE)                                                                  \
-  gram_tiled_kernel<MODE, kSlab><<<grid, block, 0, s>>>(v, v_top, v_bot, counts, b, oty, \
-                                                        dta, dtu, rho, uscale, sc, sl, out, L)
-  if (mode == GRAM_MATVEC)
-    MVTV_GRAM(GRAM_MATVEC);
-  else if (mode == GRAM_RESIDUAL)
-    MVTV_GRAM(GRAM_RESIDUAL);
-  else if (mode == GRAM_RESIDUAL_FUSED)
-    MVTV_GRAM(GRAM_RESIDUAL_FUSED);
-  else
-    return int(cudaErrorInvalidValue);
+  // 16-byte copies need every row start 16-byte aligned: m1 a multiple of
+  // 4 and every lattice and halo row aligned (null pointers pass).
+  const bool vec = L.m1 % 4 == 0 && aligned16(v) && aligned16(v_top) && aligned16(v_bot) &&
+                   aligned16(counts) && aligned16(b) && aligned16(oty) && aligned16(dta) &&
+                   aligned16(dtu) && aligned16(out);
+#define MVTV_GRAM(MODE)                                                                     \
+  launch_gram_mode<MODE, kSlab>(vec, v, v_top, v_bot, counts, b, oty, dta, dtu, rho, uscale, \
+                                sc, sl, out, L, s)
+  if (mode == GRAM_MATVEC) return MVTV_GRAM(GRAM_MATVEC);
+  if (mode == GRAM_RESIDUAL) return MVTV_GRAM(GRAM_RESIDUAL);
+  if (mode == GRAM_RESIDUAL_FUSED) return MVTV_GRAM(GRAM_RESIDUAL_FUSED);
 #undef MVTV_GRAM
-  return int(cudaGetLastError());
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace mvtv

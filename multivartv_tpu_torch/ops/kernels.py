@@ -33,10 +33,13 @@ with a batch coordinate, serves both.  B3-B5's folded DCT products run on
 the tensor cores from padded bf16 operands, the spectral scale fused into
 the forward transform (csrc/dct_fold.cu).  B6 is B3's chain with the dense
 bf16 DCT matrices (any axes), its products on the tensor cores; B7 is its
-matvec stage with the dot's finish pass.  B8 is B1's stage kernel with two template flags.  B11 is B2's kernel,
-which takes any m0, m1.  B11, B14 and B11s have no ADMM caller, as in the
-JAX package.  ``gram_matvec_tiled_2d_shard`` is B9s's kernel in its matvec
-mode, the sharded PCG's matvec (the JAX package leaves it to XLA).
+matvec stage with the dot's finish pass.  B8 is B1's stage kernel with two
+template flags, B8s the same kernel in its slab mode; B9s, its matvec mode
+and B10 (on 16-byte aligned rows) are one row march (csrc/tiled.cu).  B11
+is B2's kernel, which takes any m0, m1.  B11, B14 and B11s have no ADMM
+caller, as in the JAX package.  ``gram_matvec_tiled_2d_shard`` is B9s's
+kernel in its matvec mode, the sharded PCG's matvec (the JAX package
+leaves it to XLA).
 ``stream_copy`` and ``dual_struct`` (csrc/probe.cu) are measurement probes
 that no path launches.
 
@@ -539,7 +542,7 @@ _ARGTYPES = {
     "mvtv_gram_tiled_3d": [_I] + [_P] * 8 + [_F] * 7 + [_P] + [_I] * 3 + [_P],
     "mvtv_rhs_tiled_3d": [_P] * 17 + [_F] * 7 + [_P] + [_I] * 3 + [_P],
     "mvtv_stream_copy": [_P, _P, _LL, _I, _P],
-    "mvtv_dual_update_tiled_2d_shard": [_P] * 11 + [_F] * 3 + [_I] * 6 + [_P] * 6
+    "mvtv_dual_update_tiled_2d_shard": [_P] * 11 + [_F] * 3 + [_I] * 6 + [_P] * 7
                                        + [_I, _I, _P],
     "mvtv_gram_tiled_2d_shard": [_I] + [_P] * 10 + [_F] * 3 + [_I, _I, _P, _I, _I, _P],
     "mvtv_rhs_tiled_2d_shard": [_P] * 13 + [_F] * 3 + [_I, _P, _I, _I, _P],
@@ -575,13 +578,14 @@ def _route(*tensors: torch.Tensor) -> str:
 
 
 def _check_lattices(shape, *tensors, even: bool = False, rank: int = 2):
+    shape = tuple(shape)
     if len(shape) != rank:
         raise ValueError(f"the {rank}-D kernels need a {rank}-D lattice, got shape "
                          f"{tuple(shape)}")
     if even and (shape[0] % 2 or shape[1] % 2):
         raise ValueError(f"the folded DCT needs even axes, got {tuple(shape)}")
     for t in tensors:
-        if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        if t.dtype != torch.float32 or t.shape != shape or not t.is_contiguous():
             raise ValueError(f"expected a contiguous float32 {tuple(shape)} lattice, got "
                              f"{t.dtype} {tuple(t.shape)}")
 
@@ -1054,15 +1058,18 @@ def rhs_tiled_2d(alpha: Sequence[torch.Tensor], u: Sequence[torch.Tensor], oty: 
 # The row-slab kernels of the sharded route (parallel/tiled_shard.py)
 # ---------------------------------------------------------------------------
 
-def _halo_rows(halos_top, halos_bot, m1: int):
-    """(rows above, rows below) of the slab: the last row of each top halo
-    array and the first of each bottom one, checked."""
-    for h in (*halos_top, *halos_bot):
-        if (h.dtype != torch.float32 or h.dim() != 2 or h.shape[0] < 1 or h.shape[1] != m1
+def _halo_ptrs(halos_top, halos_bot, m1: int):
+    """(rows above, rows below) of the slab as device pointers: the last row
+    of each top halo array and the first of each bottom one, checked."""
+    ptrs = []
+    for k, h in enumerate((*halos_top, *halos_bot)):
+        shp = h.shape
+        if (h.dtype != torch.float32 or len(shp) != 2 or shp[0] < 1 or shp[1] != m1
                 or not h.is_contiguous()):
             raise ValueError(f"expected contiguous float32 (h, {m1}) halo arrays, h >= 1, got "
-                             f"{h.dtype} {tuple(h.shape)}")
-    return [h[-1] for h in halos_top], [h[0] for h in halos_bot]
+                             f"{h.dtype} {tuple(shp)}")
+        ptrs.append(h.data_ptr() + (4 * m1 * (shp[0] - 1) if k < len(halos_top) else 0))
+    return ptrs[:len(halos_top)], ptrs[len(halos_top):]
 
 
 def _check_slab(row_off: int, m0: int, m0_global: int) -> None:
@@ -1078,12 +1085,12 @@ def dual_update_tiled_2d_shard(theta: torch.Tensor, u: Sequence[torch.Tensor], h
                                want_adjoints: bool = False, want_alpha: bool = True):
     """B8s: dual_update_tiled_2d's contract on a row slab (see above), halos
     in (theta, u0, u1, u2) order; the stats are this slab's partial sums,
-    which the caller all-reduces.  On the card, as B8, want_alpha !=
-    want_adjoints."""
+    which the caller all-reduces.  On the card B8's kernel in its slab mode,
+    one launch on B8's buffers; as B8, want_alpha != want_adjoints."""
     shape = tuple(theta.shape)
     _check_lattices(shape, theta, *u)
     _check_slab(row_off, shape[0], m0_global)
-    top, bot = _halo_rows(halos_top, halos_bot, shape[1])
+    top, bot = _halo_ptrs(halos_top, halos_bot, shape[1])
     if _route(theta, *u, *halos_top, *halos_bot) == "cpu":
         return dual_update_tiled_2d_shard_reference(theta, u, halos_top, halos_bot, row_off,
                                                     m0_global, kappa, scales, u_scale, true_m,
@@ -1095,39 +1102,36 @@ def dual_update_tiled_2d_shard(theta: torch.Tensor, u: Sequence[torch.Tensor], h
     if u_scale is None:
         u_scale = torch.ones((), dtype=torch.float32, device=dev)
     n_a, n_d = (3 if want_alpha else 0), (2 if want_adjoints else 0)
-    out = torch.empty((n_a + 3 + n_d,) + shape, dtype=torch.float32, device=dev)
-    scal = _scal_buffer(0, dev)
-    partials = _partials(shape, 5, dev)
+    out, work = _dual_buffers(shape, n_a + 3 + n_d, dev)
     t0, t1 = (-1, -1) if true_m is None else (int(true_m[0]), int(true_m[1]))
+    stream, ptr, step = _stream(dev), out.data_ptr(), 4 * shape[0] * shape[1]
     err = _lib().mvtv_dual_update_tiled_2d_shard(
-        theta.data_ptr(), *(t.data_ptr() for t in u), top[0].data_ptr(), bot[0].data_ptr(),
-        *(t.data_ptr() for t in top[1:]), _scalar_ptr(kappa, dev), _scalar_ptr(u_scale, dev),
-        *scales, t0, t1, int(row_off), int(m0_global), int(want_alpha), int(want_adjoints),
-        out[0].data_ptr() if want_alpha else None, out[n_a].data_ptr(),
-        out[n_a + 3].data_ptr() if want_adjoints else None,
-        out[n_a + 4].data_ptr() if want_adjoints else None,
-        partials.data_ptr(), scal.data_ptr(), shape[0], shape[1], _stream(dev))
+        theta.data_ptr(), *(t.data_ptr() for t in u), top[0], bot[0], *top[1:],
+        _scalar_ptr(kappa, dev), _scalar_ptr(u_scale, dev), *scales, t0, t1, int(row_off),
+        int(m0_global), int(want_alpha), int(want_adjoints), ptr if want_alpha else None,
+        ptr + n_a * step, ptr + (n_a + 3) * step if want_adjoints else None,
+        ptr + (n_a + 4) * step if want_adjoints else None, work.data_ptr() + 4 * S_CG,
+        _ticket(dev, stream), work.data_ptr(), shape[0], shape[1], stream)
     _raise_on(err, "dual_update_tiled_2d_shard")
     launch_counts["dual_update_tiled_2d_shard"] += 1
-    res = (tuple(out[0:3].unbind(0)) if want_alpha else None,
-           tuple(out[n_a:n_a + 3].unbind(0)), scal[S_STATS:S_STATS + 5])
+    lat = out.unbind(0)
+    res = (lat[:3] if want_alpha else None, lat[n_a:n_a + 3], work[S_STATS:S_STATS + 5])
     if want_adjoints:
-        res += (out[n_a + 3], out[n_a + 4])
+        res += lat[n_a + 3:]
     return res
 
 
-def _launch_gram_slab(mode: int, name: str, v, top, bot, row_off, m0_global, counts, b, parts,
-                      rho, scales) -> torch.Tensor:
+def _launch_gram_slab(mode: int, name: str, v, top: int, bot: int, row_off, m0_global, counts,
+                      b, parts, rho, scales) -> torch.Tensor:
+    """B9s's kernel (csrc/tiled.cu) on CUDA tensors, the halo rows given as
+    pointers (_halo_ptrs), counted under ``name``."""
     dev = v.device
     oty, dta, u_scale, dtu = parts if parts is not None else (None, None, None, None)
     out = torch.empty_like(v)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     err = _lib().mvtv_gram_tiled_2d_shard(
-        mode, v.data_ptr(), top.data_ptr(), bot.data_ptr(), counts.data_ptr(), ptr(b),
-        ptr(oty), ptr(dta), ptr(dtu), _scalar_ptr(rho, dev),
+        mode, v.data_ptr(), top, bot, counts.data_ptr(), None if b is None else b.data_ptr(),
+        None if oty is None else oty.data_ptr(), None if dta is None else dta.data_ptr(),
+        None if dtu is None else dtu.data_ptr(), _scalar_ptr(rho, dev),
         None if u_scale is None else _scalar_ptr(u_scale, dev), *scales, int(row_off),
         int(m0_global), out.data_ptr(), v.shape[0], v.shape[1], _stream(dev))
     _raise_on(err, name)
@@ -1149,7 +1153,7 @@ def gram_residual_tiled_2d_shard(b: Optional[torch.Tensor], v: torch.Tensor, hal
         lattices = (v, counts, b)
     _check_lattices(shape, *lattices)
     _check_slab(row_off, shape[0], m0_global)
-    (top,), (bot,) = _halo_rows([halo_top], [halo_bot], shape[1])
+    (top,), (bot,) = _halo_ptrs([halo_top], [halo_bot], shape[1])
     if _route(*lattices, halo_top, halo_bot) == "cpu":
         return gram_residual_tiled_2d_shard_reference(b, v, halo_top, halo_bot, row_off,
                                                       m0_global, counts, rho, scales, rhs_parts)
@@ -1167,7 +1171,7 @@ def gram_matvec_tiled_2d_shard(v: torch.Tensor, halo_top, halo_bot, row_off: int
     shape = tuple(v.shape)
     _check_lattices(shape, v, counts)
     _check_slab(row_off, shape[0], m0_global)
-    (top,), (bot,) = _halo_rows([halo_top], [halo_bot], shape[1])
+    (top,), (bot,) = _halo_ptrs([halo_top], [halo_bot], shape[1])
     if _route(v, counts, halo_top, halo_bot) == "cpu":
         return gram_matvec_tiled_2d_shard_reference(v, halo_top, halo_bot, row_off, m0_global,
                                                     counts, rho, scales)
@@ -1185,7 +1189,7 @@ def rhs_tiled_2d_shard(alpha: Sequence[torch.Tensor], u: Sequence[torch.Tensor],
     shape = tuple(oty.shape)
     _check_lattices(shape, oty, *alpha, *u)
     _check_slab(row_off, shape[0], row_off + shape[0])
-    top, _ = _halo_rows(halos_top, halos_bot, shape[1])
+    top, _ = _halo_ptrs(halos_top, halos_bot, shape[1])
     if _route(oty, *alpha, *u, *halos_top, *halos_bot) == "cpu":
         return rhs_tiled_2d_shard_reference(alpha, u, halos_top, halos_bot, row_off, oty, rho,
                                             u_scale, scales)
@@ -1194,7 +1198,7 @@ def rhs_tiled_2d_shard(alpha: Sequence[torch.Tensor], u: Sequence[torch.Tensor],
         u_scale = torch.ones((), dtype=torch.float32, device=dev)
     b = torch.empty_like(oty)
     err = _lib().mvtv_rhs_tiled_2d_shard(
-        *(t.data_ptr() for t in (*alpha, *u)), *(top[k].data_ptr() for k in (0, 2, 3, 5)),
+        *(t.data_ptr() for t in (*alpha, *u)), *(top[k] for k in (0, 2, 3, 5)),
         oty.data_ptr(), _scalar_ptr(rho, dev), _scalar_ptr(u_scale, dev), *scales,
         int(row_off), b.data_ptr(), shape[0], shape[1], _stream(dev))
     _raise_on(err, "rhs_tiled_2d_shard")

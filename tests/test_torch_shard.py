@@ -185,6 +185,106 @@ def test_rhs_tiled_shard_matches_jax():
     assert torch.equal(torch.cat(got_all), whole)
 
 
+# Uneven cuts of M: np.array_split's 3 slabs (86, 85, 85 rows), and a cut
+# whose first slab has 5 rows, so that one tile of 8 rows holds both of that
+# slab's halo rows.
+CUTS = {"array_split_3": tuple(len(a) for a in np.array_split(np.arange(M[0]), 3)),
+        "first_slab_5_rows": (5, 123, 128)}
+
+
+def _cut_slabs(rows):
+    """(row_off, rows) of each slab of a cut."""
+    offs = np.cumsum((0,) + rows)
+    return [(int(o), int(r)) for o, r in zip(offs[:-1], rows)]
+
+
+def _cut_halos(x, off, rows):
+    """(top, bot): up to HALO rows above and below the slab, zeros at the
+    global edges."""
+    z = np.zeros((HALO, M[1]), np.float32)
+    top = x[max(off - HALO, 0):off] if off > 0 else z
+    bot = x[off + rows:off + rows + HALO] if off + rows < M[0] else z
+    return top, bot
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_whole(kernel, **kw):
+    """JAX's whole-lattice tiled kernel in interpret mode (32-row panels) on
+    _inputs(11), as numpy arrays."""
+    scales, theta, u, _, counts, oty, dta, dtu = _inputs(11)
+    j = jnp.asarray
+    if kernel == "dual":
+        out = pk.dual_update_tiled_2d(j(theta), tuple(map(j, u)), jnp.float32(0.05), scales,
+                                      jnp.float32(0.5), interpret=True, tile_rows=32, **kw)
+        return tuple(None if x is None else (tuple(map(np.asarray, x)) if isinstance(x, tuple)
+                                             else np.asarray(x)) for x in out)
+    rho, us = jnp.float32(0.07), jnp.float32(0.5)
+    if kernel == "matvec":
+        return np.asarray(pk.gram_matvec_tiled_2d(j(theta), j(counts), rho, scales,
+                                                  interpret=True, tile_rows=32))
+    b = (oty + np.float32(0.07) * (dta + np.float32(0.5) * dtu)).astype(np.float32)
+    parts = (j(oty), j(dta), us, j(dtu)) if kw["fused"] else None
+    return np.asarray(pk.gram_residual_tiled_2d(None if kw["fused"] else j(b), j(theta),
+                                                j(counts), rho, scales, rhs_parts=parts,
+                                                interpret=True, tile_rows=32))
+
+
+@pytest.mark.parametrize("want_alpha", [True, False])
+@pytest.mark.parametrize("cut", sorted(CUTS))
+def test_uneven_slabs_dual_match_jax_whole_lattice(cut, want_alpha):
+    """B8s's plain version on each slab of an uneven cut, with its halos:
+    the slabs' alpha (or its elision), u_new and carries concatenated match
+    JAX's whole-lattice dual_update_tiled_2d within 1e-5, their summed Boyd
+    sums within rtol 1e-4."""
+    scales, theta, u, *_ = _inputs(11)
+    got = []
+    for off, rows in _cut_slabs(CUTS[cut]):
+        tops, bots = zip(*(_cut_halos(x, off, rows) for x in (theta, *u)))
+        got.append(K.dual_update_tiled_2d_shard(
+            torch.as_tensor(theta[off:off + rows]),
+            tuple(torch.as_tensor(w[off:off + rows]) for w in u), _t(tops), _t(bots), off, M[0],
+            torch.tensor(0.05), scales, u_scale=torch.tensor(0.5), want_adjoints=True,
+            want_alpha=want_alpha))
+    want = _jax_whole("dual", want_adjoints=True, want_alpha=want_alpha)
+    assert (got[0][0] is None) == (want[0] is None) == (not want_alpha)
+    for k in range(3):
+        if want_alpha:
+            np.testing.assert_allclose(torch.cat([g[0][k] for g in got]).numpy(), want[0][k],
+                                       atol=1e-5)
+        np.testing.assert_allclose(torch.cat([g[1][k] for g in got]).numpy(), want[1][k],
+                                   atol=1e-5)
+    for k in (3, 4):
+        np.testing.assert_allclose(torch.cat([g[k] for g in got]).numpy(), want[k], atol=1e-5)
+    np.testing.assert_allclose(sum(g[2] for g in got).numpy(), want[2], rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["b_given", "fused", "matvec"])
+@pytest.mark.parametrize("cut", sorted(CUTS))
+def test_uneven_slabs_gram_match_jax_whole_lattice(cut, mode):
+    """B9s's plain version (b given, fused) and its matvec mode on each slab
+    of an uneven cut, with v's halos: the slabs concatenated match JAX's
+    whole-lattice gram_residual_tiled_2d / gram_matvec_tiled_2d within
+    1e-5."""
+    scales, v, _, _, counts, oty, dta, dtu = _inputs(11)
+    rho, us = torch.tensor(0.07), torch.tensor(0.5)
+    b = (oty + np.float32(0.07) * (dta + np.float32(0.5) * dtu)).astype(np.float32)
+    got = []
+    for off, rows in _cut_slabs(CUTS[cut]):
+        t = lambda x: torch.as_tensor(x[off:off + rows])
+        top, bot = (torch.as_tensor(h) for h in _cut_halos(v, off, rows))
+        if mode == "matvec":
+            got.append(K.gram_matvec_tiled_2d_shard(t(v), top, bot, off, M[0], t(counts), rho,
+                                                    scales))
+            continue
+        parts = (t(oty), t(dta), us, t(dtu)) if mode == "fused" else None
+        got.append(K.gram_residual_tiled_2d_shard(None if parts else t(b), t(v), top, bot, off,
+                                                  M[0], t(counts), rho, scales,
+                                                  rhs_parts=parts))
+    want = (_jax_whole("matvec") if mode == "matvec"
+            else _jax_whole("gram", fused=mode == "fused"))
+    np.testing.assert_allclose(torch.cat(got).numpy(), want, atol=1e-5)
+
+
 def test_one_row_halos_and_bad_arguments():
     """The kernels read one row on each side: one-row halo arrays give the
     8-row ones' results.  Bad halos and offsets raise."""
