@@ -10,8 +10,10 @@ paths through the entry points a user calls: mvtv_one on two workloads,
 checked against the exact-f32 route; the cross-validated mvtv (5 folds,
 20 lambdas) at n = 1e5 on the default 316^2 mesh, checked against the JAX
 package's own fit of the same data (numbers embedded below) and, at 128^2,
-against the port's exact-f32 route; and the large-lattice route above 2^20
-knots (the tiled kernels under the spectral-correction CG): mvtv_one at
+against the port's exact-f32 route, and on one column (p = 1, the exact
+route under the default config) against the same call on the CPU; and
+the large-lattice route above 2^20 knots (the tiled kernels under the
+spectral-correction CG): mvtv_one at
 2048^2 (n = 2^22) and 4096^2 (n = 2^24) and on a thin 192 x 8192 lattice,
 and mvtv(folds=1, n_lambda=5) at 2048^2, checked against the exact-f32
 route on the card and lambda_max against a float64 numpy and scipy
@@ -41,8 +43,8 @@ the whole-lattice kernels; and the two repaired routes, mvtv_one at
 16384 x 256 (no folded DCT halves) and at 16^4 (p = 4), each against the
 exact-f32 route.  Phase 3 also holds B6 at 511 x 2047 and B12 and B13 at
 258 x 130 x 136, shapes that leave remainders in their kernels' tiles, B13
-at the C3 folds' 256 x 256 x 64, and B1 at 1023^2 and 511 x 2047 with a
-second run bit for bit.
+at the C3 folds' 256 x 256 x 64, and B1 and B7 at 1023^2 and 511 x 2047
+(B7 also at 1024^2, its row march) with a second run bit for bit.
 It shows through the launch counters that the paths ran every kernel,
 measures the device-memory ceiling with a streaming-copy probe, times each
 kernel beside its plain version and its bound (B3-B5 also with their
@@ -68,8 +70,9 @@ gate); phase 14, run only when listed, holds the 256^3 and
 255 x 255 x 256 fits and the 256^3 lambda path against the exact-f32 route
 (about 16 minutes on an H100); phase 18, run only when listed, re-runs
 phase 12's C3 check at tol = 1e-5 (the witness for its tolerances);
-phase 19, run only when listed, times B1, B2, B4, B5, B8, B9s's matvec
-and B13 at their launch sizes with nothing else (copied into an older
+phase 19, run only when listed, prints digests of the kernels' outputs on
+seeded inputs and times B1, B2, B4, B5, B7, B8, B9, B9s and its matvec,
+B10, B11s and B13 at their launch sizes with nothing else (copied into an older
 checkout's root, it times that tree's kernels: an A/B in one call).  Each
 phase header carries the seconds since the start.
 
@@ -887,9 +890,10 @@ def slice_inputs(label: str, device, warm_iters: int = 4) -> dict:
 
 def compare_slice(device, errs):
     """B6 (from the warm state and from x0 = 0), B1 and B2 at 1023^2 and
-    511 x 2047 and B7 there and at 1024^2 against their plain versions on
-    the slice's path inputs; records the largest absolute error per kernel
-    in errs."""
+    511 x 2047 and B7 there (rows not 16-byte aligned: its thread-per-knot
+    kernel) and at 1024^2 (the row march) against their plain versions on
+    the slice's path inputs, and B7 a second time bit for bit (its ticket
+    back at 0); records the largest absolute error per kernel in errs."""
     import torch
     from multivartv_tpu_torch.ops import kernels as K
 
@@ -909,6 +913,11 @@ def compare_slice(device, errs):
         check(e <= 1e-5, f"gram_matvec_2d {tag}: A v max err {e:.3e} <= 1e-5 x max(1, |ref|)")
         check(torch.allclose(w.double(), w_r.double(), rtol=1e-5, atol=0),
               f"gram_matvec_2d {tag}: <v, A v> {float(w):.9e} vs {float(w_r):.9e} (rtol 1e-5)")
+        v2, w2 = K.gram_matvec_2d(s.theta, pr.counts, s.rho, sc)
+        torch.cuda.synchronize()
+        route = "row march" if I["m"][1] % 4 == 0 else "thread per knot"
+        check(torch.equal(v, v2) and torch.equal(w, w2),
+              f"gram_matvec_2d {tag} ({route}): a second run is bit-identical")
         if I["m"][0] % 2 == 0:
             continue
         b = K.rhs_2d(s.alpha, s.u, pr.oty, s.rho, s.u_scale, sc)
@@ -1151,11 +1160,43 @@ def describe_mvtv(label, model, cvres, fpath, seconds, max_iters=3000):
     log(f"    CV curve {[float(f'{v:.8g}') for v in model.cv_mses]}")
 
 
+# The p = 1 fit (ROADMAP C5): one column, default config and mesh, on the
+# card against the same call on the CPU (n, n_lambda, folds, seed).
+P1 = (2000, 10, 3, 21)
+
+
+def check_p1(device):
+    """mvtv on one column under the default config (the exact route: p = 1
+    has no kernel route until ROADMAP A9) on the card and on the CPU: the
+    card's chosen index in the CPU run's tie set (CV MSE within MVTV_TIE of
+    its minimum), and the objective at it within 1e-5."""
+    n, n_lambda, folds, seed = P1
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-1, 1, (n, 1))
+    y = np.exp(-x[:, 0] ** 2) + rng.randn(n) * 0.3
+    log(f"phase 4/5: mvtv on one column (p = 1, n = {n}, n_lambda = {n_lambda}, folds = "
+        f"{folds}), default config, card vs CPU")
+    card, _, _, seconds = mvtv_fit(x, y, None, device, n_lambda=n_lambda, folds=folds)
+    cpu, _, _, _ = mvtv_fit(x, y, None, "cpu", n_lambda=n_lambda, folds=folds)
+    cc = np.asarray(cpu.cv_mses, np.float64)
+    best = card.lambda_minmse_ind
+    ties = np.nonzero(cc <= cc.min() * (1 + MVTV_TIE))[0].tolist()
+    log(f"  p = 1 mesh {card.m}: {seconds:.2f} s on the card; CV curve {card.cv_mses.tolist()} "
+        f"(CPU {cc.tolist()})")
+    check(best in ties, f"mvtv p = 1: chosen index {best} in the CPU run's tie set {ties}")
+    obj, ref = model_objective(card), model_objective(cpu, best)
+    check(abs(obj / ref - 1) <= 1e-5, f"mvtv p = 1: objective at the chosen lambda {obj:.9e} "
+          f"vs the CPU run's {ref:.9e} (rel {obj / ref - 1:+.3e}, within 1e-5)")
+    check(bool(np.all(np.isfinite(card.theta_lattice))) and card.fitted.shape == y.shape,
+          "mvtv p = 1: theta finite, shapes")
+
+
 def phase_mvtv(device):
     """Phases 4/5, the second main path: mvtv (5 folds, 20 lambdas) at n =
     1e5 on the default 316^2 mesh under the launch counters, gated against
     the JAX package's fit (MVTV_JAX); then at 128^2, n = 16,384, the kernel
-    route against the port's exact-f32 route (launches not counted)."""
+    route against the port's exact-f32 route (launches not counted); then
+    the p = 1 fit on the card against the CPU (check_p1)."""
     from multivartv_tpu_torch.ops import kernels as K
 
     log("phase 4/5: mvtv (folds=5, n_lambda=20) on the card, counters reset")
@@ -1214,6 +1255,7 @@ def phase_mvtv(device):
     gap = abs(model_objective(km, i) / model_objective(em, i) - 1)
     check(gap <= 2e-5, f"mvtv 128^2: objective at the chosen lambda kernel vs exact {gap:.3e} "
           "<= 2e-5")
+    check_p1(device)
     return launches, model
 
 
@@ -2464,9 +2506,12 @@ def _profile_group(key: str) -> str:
         return "B6 DCT products (dct_mma.cu)"
     if "pad_bf16_kernel" in k:
         return "B6 bf16 operand staging (dct_mma.cu)"
-    if any(t in k for t in ("residual_kernel", "gram_matvec_dot", "cg_update", "spectral_scale")):
+    if any(t in k for t in ("residual_kernel", "rhs_kernel", "gram_matvec_dot", "cg_update",
+                            "spectral_scale")):
         return "B2 and the B3/B6 CG stages"
     head = k.split("(")[0]      # the kernel's name and template arguments
+    if "gram_dot_knot_kernel" in head or "gram_march_kernel<3" in head:
+        return "B7 gram_matvec_2d"
     if "dual_tile_kernel" in head and head.endswith("true>"):
         return "B8s dual_update_tiled_2d_shard"
     if "dual_tile_kernel<true" in head:
@@ -2582,11 +2627,14 @@ def time_call(name: str, label: str, run, m, n: int = 20, **kw) -> float:
 
 def launch_bits(device):
     """Digests of the dual stage's and the Gram kernels' outputs (B1, B8,
-    B8s, B4, B5 with their dual stage, B9, B10, B9s) on inputs drawn from a
-    seeded generator on the card, the DCT operators of the 512^2 and 316^2
-    fits (the warm states of the main paths differ from run to run: O'y is
-    summed with atomics).  Phase 19 run from two trees in one call shows by
-    them whether the trees give the same bits."""
+    B8s, B4, B5 with their dual stage, B9, B10, B9s), of B2 (512^2, 1023^2),
+    of B7's A v and dot apart (1024^2: the row march; 1023^2 and 511 x
+    2047: the thread-per-knot kernel; its dot beside the plain version's,
+    rtol 1e-5) and of B6 (1023^2) on inputs drawn from a seeded generator on
+    the card, the DCT operators of the 512^2, 316^2 and 1023^2 fits (the
+    warm states of the main paths differ from run to run: O'y is summed
+    with atomics).  Phase 19 run from two trees in one call shows by them
+    whether the trees give the same bits."""
     import torch
     from multivartv_tpu_torch.api import _resolve_mesh
     from multivartv_tpu_torch.config import DEFAULT_MESH, SolverConfig
@@ -2612,6 +2660,20 @@ def launch_bits(device):
         bits(f"dual_update_2d {m}", K.dual_update_2d(th, u, kappa, sc, us))
         bits(f"dual_update_2d {m} true_m", K.dual_update_2d(th, u, kappa, sc, us,
                                                            (m[0] - 1, m[1] - 1)))
+    for m in ((512, 512), (1023, 1023)):
+        a, u, oty = tuple(lat(*m) for _ in range(3)), tuple(lat(*m) for _ in range(3)), lat(*m)
+        bits(f"rhs_2d {m}", K.rhs_2d(a, u, oty, rho, us, sc))
+        bits(f"rhs_2d {m} u_scale None", K.rhs_2d(a, u, oty, rho, None, sc))
+    for m in ((1024, 1024), (1023, 1023), (511, 2047)):
+        v, c = lat(*m), lat(*m).abs()
+        av, dot = K.gram_matvec_2d(v, c, rho, sc)
+        bits(f"gram_matvec_2d {m} A v", av)
+        bits(f"gram_matvec_2d {m} dot", dot)
+        _, dot_r = K.gram_matvec_2d_reference(v, c, rho, sc)
+        check(torch.allclose(dot.double(), dot_r.double(), rtol=1e-5, atol=0),
+              f"gram_matvec_2d {m}: dot {float(dot):.9e} vs the plain version's "
+              f"{float(dot_r):.9e} (rtol 1e-5)")
+    del a, u, oty, v, c, av, dot, dot_r
     m = (2048, 2048)
     th, u = lat(*m), tuple(lat(*m) for _ in range(3))
     zero = torch.zeros(8, m[1], device=device)
@@ -2632,6 +2694,13 @@ def launch_bits(device):
     bits(f"gram_matvec_tiled_2d_shard {m} one-rank slab",
          K.gram_matvec_tiled_2d_shard(v, zero, zero, 0, m[0], c, rho, sc))
     del th, u, v, c, b, parts, zero
+    ops = build_operators((1023, 1023), (2.0 / 1022, 2.0 / 1022), SolverConfig(), device)
+    m = ops.m
+    b, x0, counts = lat(*m), lat(*m, scale=0.1), lat(*m).abs().round()
+    bits(f"xupdate_pcg_2d {m} n_steps=3",
+         K.xupdate_pcg_2d(b, x0, counts, ops.dct_mats_lp, ops.gram_eigs, rho,
+                          scalar(float(counts.mean())), ops.scales, 3))
+    del ops, b, x0, counts
     for name, batch in (("512^2 n=2^20", 1), ("316^2 n=1e5", 5)):
         make, mm, _ = WORKLOADS[name]
         spec = _resolve_mesh(make()[0], mm, DEFAULT_MESH, device)
@@ -2655,18 +2724,20 @@ def launch_bits(device):
 
 
 def phase_launch_sizes(device):
-    """Phase 19 (only when listed): the redesigned kernels and their
-    neighbours at the sizes where the main paths launch them, with
-    time_call's four numbers each: B1 at 512^2 and 1023^2, B2 at 1023^2,
-    B4 at 512^2 (K = 4), B5 at 316^2 (B = 5, K = 4, the state's copies
-    included, as in phase 7), B8 at 2048^2, B8s (carries) on the 2048^2
-    one-rank slab and on one of SHARD_SLABS slabs, B9s (b given and fused)
-    on the 2048^2 one-rank slab, B9 (fused) and B10 at 2048^2 and 192 x
-    8192, B9s's matvec mode on the one-rank 1024^2 slab and B13 (fused) at
-    256^3 and 256 x 256 x 64.  It calls only the wrappers' Python entry
-    points, whose arguments stay fixed, so the same file, copied into an
-    older checkout's root, times that tree's kernels in the same call
-    (parent, change, change, parent)."""
+    """Phase 19 (only when listed): the redesigned kernels and their neighbours
+    at the sizes where the main paths launch them, with time_call's four
+    numbers each: B1 at 512^2 and 1023^2, B2 at 512^2 and 1023^2, B7 at
+    1024^2 (its fits' lattice; the row march) and 1023^2 (rows not 16-byte
+    aligned: the thread-per-knot kernel), B4 at 512^2 (K = 4), B5 at 316^2 (B = 5, K =
+    4, the state's copies included, as in phase 7), B8 at 2048^2, B8s
+    (carries) on the 2048^2 one-rank slab and on one of SHARD_SLABS slabs,
+    B9s (b given and fused) on the 2048^2 one-rank slab, B9 (fused) and B10
+    at 2048^2 and 192 x 8192, B9s's matvec mode on the one-rank 1024^2
+    slab, B11s on a 512-row slab of 2048^2 and B13 (fused) at 256^3 and 256
+    x 256 x 64.  It calls only the wrappers' Python entry points, whose
+    arguments stay fixed, so the same file, copied into an older checkout's
+    root, times that tree's kernels in the same call (parent, change,
+    change, parent)."""
     import torch
     from multivartv_tpu_torch.ops import kernels as K
     from multivartv_tpu_torch.solver import admm
@@ -2678,6 +2749,8 @@ def phase_launch_sizes(device):
     kappa = I["lam"] / I["rho"]
     time_call("dual_update_2d", "512^2", lambda: K.dual_update_2d(I["theta"], I["u"], kappa,
                                                                   sc, us), m)
+    time_call("rhs_2d", "512^2", lambda: K.rhs_2d(I["alpha"], I["u"], I["oty"], I["rho"], us,
+                                                  sc), m)
     ops = I["ops"]
     chain = (I["theta"], I["u"], I["alpha"], I["counts"], I["oty"], ops.dct_halves_lp,
              ops.gram_eigs_packed, I["lam"], I["rho"], us, I["cbar"], sc)
@@ -2703,6 +2776,13 @@ def phase_launch_sizes(device):
                                                                    s.u_scale), m)
     time_call("rhs_2d", "1023^2", lambda: K.rhs_2d(s.alpha, s.u, pr.oty, s.rho, s.u_scale, sc),
               m)
+    time_call("gram_matvec_2d", "1023^2 (thread per knot)",
+              lambda: K.gram_matvec_2d(s.theta, pr.counts, s.rho, sc), m)
+    del I, s, pr
+    I = slice_inputs("1024^2 B7 f32 precond", device)
+    pr, s = I["problem"], I["s"]
+    time_call("gram_matvec_2d", "1024^2",
+              lambda: K.gram_matvec_2d(s.theta, pr.counts, s.rho, I["ops"].scales), I["m"])
     del I, s, pr
     I = tiled_inputs("2048^2 n=2^22", device)
     s, sc = I["s"], I["ops"].scales
@@ -2728,6 +2808,14 @@ def phase_launch_sizes(device):
     time_call("gram_residual_tiled_2d_shard", "2048^2 one-rank slab, fused",
               lambda: K.gram_residual_tiled_2d_shard(None, s.theta, vt, vb, 0, m[0], pr.counts,
                                                      s.rho, sc, rhs_parts=parts), m, fused=True)
+    alpha = admm._refresh_alpha(I["ops"], s, I["lam"]).alpha
+    lo, hi = m[0] // SHARD_SLABS, 2 * m[0] // SHARD_SLABS
+    atops, abots = slab_halos((*alpha, *s.u), lo, hi)
+    rhs = (tuple(a[lo:hi] for a in alpha), tuple(w[lo:hi] for w in s.u), atops, abots, lo,
+           pr.oty[lo:hi], s.rho, s.u_scale, sc)
+    time_call("rhs_tiled_2d_shard", f"{hi - lo}x{m[1]} slab 1 of 2048^2",
+              lambda: K.rhs_tiled_2d_shard(*rhs), (hi - lo, m[1]))
+    del alpha, atops, abots, rhs
     del I, s, pr, b, parts, dual, tops, bots
     for name in TIMED_LARGE:
         I = tiled_inputs(name, device)
@@ -3306,7 +3394,7 @@ SOURCES = {
                              "multivartv_tpu/ops/pallas_kernels.py:1820"),
     "xupdate_pcg_2d": ("multivartv_tpu_torch/csrc/xupdate.cu",
                        "multivartv_tpu/ops/pallas_kernels.py:505"),
-    "gram_matvec_2d": ("multivartv_tpu_torch/csrc/xupdate.cu",
+    "gram_matvec_2d": ("multivartv_tpu_torch/csrc/tiled.cu",
                        "multivartv_tpu/ops/pallas_kernels.py:143"),
     "rhs_tiled_2d": ("multivartv_tpu_torch/csrc/rhs.cu",
                      "multivartv_tpu/ops/pallas_kernels.py:1545"),

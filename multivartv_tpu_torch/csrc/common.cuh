@@ -182,8 +182,8 @@ int launch_init_scalars(float* scal, const float* lam, const float* rho, const f
                         const float* cbar, const float* kappa, Batch bt, cudaStream_t s);
 
 // rhs.cu: the residual r = b - A x (mode 1: b given; mode 2: b formed from
-// oty, alpha, u as in B2) or the rhs alone (mode 0: writes b).
-enum ResidualMode : int { RHS_ONLY = 0, B_GIVEN = 1, B_FORMED = 2 };
+// oty, alpha, u as in B2).
+enum ResidualMode : int { B_GIVEN = 1, B_FORMED = 2 };
 int launch_residual(ResidualMode mode, const float* b, const float* x, const float* counts,
                     const float* oty, const float* a0, const float* a1, const float* a2,
                     const float* u0, const float* u1, const float* u2, const float* scal,

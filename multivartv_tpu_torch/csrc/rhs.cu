@@ -4,8 +4,8 @@
 // and B11 rhs_tiled_2d, which computes the same function at any size) and
 // _tiled_rhs_kernel with sharded=True (rhs_tiled_2d_shard, B11s, below):
 //   b = oty + rho * (s_mix adj0(adj1(w0)) + s_ax1 adj1(w1) + s_ax0 adj0(w2)),
-//   w_b = alpha_b + u_scale * u_b,
-// and, in the same kernel, the initial CG residual r0 = b - A x of
+//   w_b = alpha_b + u_scale * u_b (rhs_kernel),
+// and, in residual_kernel, the initial CG residual r0 = b - A x of
 // _xupdate_kernel_packed (B3, b given) and of _admm_chain (B4, B5: b formed
 // in registers and never stored, pallas_kernels.py:683-684), where
 //   A x = counts * x + sum_b rho s_b^2 adj_b(fwd_b(x)).
@@ -13,9 +13,15 @@
 // Bound on the H100: device-memory bandwidth.  Mode B_FORMED reads 9 lattices
 // (x, counts, oty, 3 alpha, 3 u) and writes one: 40 bytes per element, about
 // 10.5 MB at 512^2, ~3 us at 3.35 TB/s, and the whole state is L2-resident.
+// B2 alone (rhs_kernel) reads 7 and writes b: 32 bytes per element, 0.0100 ms
+// at 1023^2, where its one kernel already runs at about that bound; so B2 is
+// one launch that reads rho and u_scale through their device pointers, and
+// the rest of a call is its wrapper's host time.
 // Design: one thread per element reads its 3x3 neighbourhood straight from
 // global memory (neighbouring threads share the lines in L1/L2), so every
-// lattice is read from device memory about once; no shared-memory halo yet.
+// lattice is read from device memory about once; no shared-memory halo (a
+// 1023-float row is not 16-byte aligned, and the row march's 4-byte copies
+// ran slower than this kernel on such rows).
 #include "stencil.cuh"
 
 namespace mvtv {
@@ -44,10 +50,6 @@ residual_kernel(const float* __restrict__ b, const float* __restrict__ x,
     bv = oty[coff + c] + rho * adjoint_at(a0 + off, a1 + off, a2 + off, u0 + off, u1 + off,
                                           u2 + off, scal[S_USCALE], i, j, L, sc);
   }
-  if (MODE == RHS_ONLY) {
-    out[off + c] = bv;
-    return;
-  }
   const float g_mix = rho * sc.mix * sc.mix;
   const float g_ax1 = rho * sc.ax1 * sc.ax1;
   const float g_ax0 = rho * sc.ax0 * sc.ax0;
@@ -60,10 +62,7 @@ int launch_residual(ResidualMode mode, const float* b, const float* x, const flo
                     const float* u0, const float* u1, const float* u2, const float* scal,
                     Scales sc, float* out, Lat L, Batch bt, cudaStream_t s) {
   const dim3 grid = stencil_grid(L, bt.B), block(TX, TY);
-  if (mode == RHS_ONLY)
-    residual_kernel<RHS_ONLY><<<grid, block, 0, s>>>(b, x, counts, oty, a0, a1, a2, u0, u1, u2,
-                                                     scal, sc, out, L, bt);
-  else if (mode == B_GIVEN)
+  if (mode == B_GIVEN)
     residual_kernel<B_GIVEN><<<grid, block, 0, s>>>(b, x, counts, oty, a0, a1, a2, u0, u1, u2,
                                                     scal, sc, out, L, bt);
   else
@@ -71,6 +70,23 @@ int launch_residual(ResidualMode mode, const float* b, const float* x, const flo
                                                      scal, sc, out, L, bt);
   MVTV_LAUNCHED();
   return 0;
+}
+
+// B2 and B11: b = oty + rho D'(alpha + u_scale u) on a whole lattice, rho
+// and u_scale read through their pointers (u_scale null: 1), in
+// residual_kernel's operation order.
+__global__ void __launch_bounds__(kThreads)
+rhs_kernel(const float* __restrict__ a0, const float* __restrict__ a1,
+           const float* __restrict__ a2, const float* __restrict__ u0,
+           const float* __restrict__ u1, const float* __restrict__ u2,
+           const float* __restrict__ oty, const float* __restrict__ rho_p,
+           const float* __restrict__ us_p, Scales sc, float* __restrict__ out, Lat L) {
+  const int j = blockIdx.x * TX + threadIdx.x;
+  const int i = blockIdx.y * TY + threadIdx.y;
+  if (i >= L.m0 || j >= L.m1) return;
+  const size_t c = size_t(i) * L.m1 + j;
+  const float us = us_p ? *us_p : 1.f;
+  out[c] = oty[c] + *rho_p * adjoint_at(a0, a1, a2, u0, u1, u2, us, i, j, L, sc);
 }
 
 // B11s (pallas_kernels.py:rhs_tiled_2d_shard, _tiled_rhs_kernel with
@@ -105,17 +121,16 @@ rhs_shard_kernel(const float* __restrict__ a0, const float* __restrict__ a1,
 
 }  // namespace mvtv
 
-// B2 entry point: b = oty + rho D'(alpha + u_scale u).
+// B2 entry point: b = oty + rho D'(alpha + u_scale u), one launch; rho and
+// uscale are device pointers (uscale null: 1).
 extern "C" int mvtv_rhs_2d(const float* a0, const float* a1, const float* a2, const float* u0,
                            const float* u1, const float* u2, const float* oty, const float* rho,
                            const float* uscale, float s_mix, float s_ax1, float s_ax0, float* b,
-                           float* scal, int m0, int m1, void* stream) {
+                           int m0, int m1, void* stream) {
   using namespace mvtv;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Lat L{m0, m1};
-  MVTV_CHECK(launch_init_scalars(scal, nullptr, rho, uscale, nullptr, nullptr, kOne, s));
-  MVTV_CHECK(launch_residual(RHS_ONLY, nullptr, nullptr, nullptr, oty, a0, a1, a2, u0, u1, u2,
-                             scal, Scales{s_mix, s_ax1, s_ax0}, b, L, kOne, s));
+  rhs_kernel<<<stencil_grid(L), dim3(TX, TY), 0, static_cast<cudaStream_t>(stream)>>>(
+      a0, a1, a2, u0, u1, u2, oty, rho, uscale, Scales{s_mix, s_ax1, s_ax0}, b, L);
   return int(cudaGetLastError());
 }
 

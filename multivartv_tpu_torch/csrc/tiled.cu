@@ -16,7 +16,14 @@
 //     boundary rows, zeros at the global edges), every axis-0 mask on the
 //     global row; in mode 0 the same kernel is the slab's matvec, the
 //     sharded PCG's (the JAX package leaves that one to XLA's partitioner).
-//     Bound: as B9 or B10, plus two halo rows.
+//     Bound: as B9 or B10, plus two halo rows;
+//   * gram_matvec_2d (B7, _gram_matvec_kernel, a whole lattice of at most
+//     2^20 knots): B10's A v with B7's scalars (rho s) s, and <v, A v>.
+//     Each CTA leaves its partial of the dot and the CTA that takes the last
+//     ticket (B1's pattern, dual.cu) adds them in a fixed order: one launch,
+//     where B7 was a scalar copy, the stage kernel and a finish pass.  The
+//     dot costs the tail of the launch: the last CTA's loads of the
+//     partials, issued 16 at a time.  Bound: B10's 12 bytes per knot.
 //
 // The TPU kernels stream row panels of T <= 512 rows with 8-row halos
 // through VMEM (double-buffered manual DMA, _halo_copies/_halo_pingpong)
@@ -39,9 +46,12 @@
 // The chunk length follows the lattice's shape alone (about kGramCtas
 // CTAs), never the data.  B9, and B10 on other rows, keep
 // gram_knot_kernel: one thread per knot reading its neighbourhood from
-// device memory, as B2 does.  What the halo code taught stays: every value
-// outside the lattice is an explicit 0 under the padded-block convention
-// (the edge() masks of stencil.cuh), so a wrapped neighbour never leaks in.
+// device memory, as B2 does; B7 on such rows runs gram_dot_knot_kernel,
+// the same arithmetic, a CTA walking kDotSteps 32 x 8 tiles down a column
+// strip, then the dot's last-CTA finish.  What the halo code taught
+// stays: every value outside the lattice is an explicit 0 under the
+// padded-block convention (the edge() masks of stencil.cuh), so a wrapped
+// neighbour never leaks in.
 //
 // Bound on the H100: device-memory bandwidth, one pass each.  B8 with alpha
 // skipped reads theta and 3 u and writes 3 u_new, dta and dtu: 36 bytes per
@@ -54,21 +64,76 @@
 
 namespace mvtv {
 
-enum GramMode : int { GRAM_MATVEC = 0, GRAM_RESIDUAL = 1, GRAM_RESIDUAL_FUSED = 2 };
+enum GramMode : int {
+  GRAM_MATVEC = 0,
+  GRAM_RESIDUAL = 1,
+  GRAM_RESIDUAL_FUSED = 2,
+  GRAM_MATVEC_DOT = 3  // B7: GRAM_MATVEC with B7's scalars, and <v, A v>
+};
 
 constexpr int kGW = 256;         // columns per strip
 constexpr int kGAhead = 3;       // rows a read runs ahead of the row it serves
 constexpr int kGRing = 8;        // v rows in the ring (>= kGAhead + 3, a power of two)
 constexpr int kGInRing = 4;      // input rows in theirs (>= kGAhead + 1, a power of two)
 constexpr int kGramCtas = 1024;  // CTAs a lattice is cut into, about 8 per SM
+constexpr int kDotSteps = 8;     // 32 x 8 tiles per CTA of B7's thread-per-knot kernel
 
 __host__ __device__ constexpr int gram_inputs(int mode) {
-  return mode == GRAM_MATVEC ? 1 : (mode == GRAM_RESIDUAL ? 2 : 4);
+  return (mode == GRAM_MATVEC || mode == GRAM_MATVEC_DOT) ? 1 : (mode == GRAM_RESIDUAL ? 2 : 4);
+}
+
+// B7's dot: where each CTA leaves its partial, the ticket (one unsigned,
+// 0 before the launch and after it) and the total.
+struct DotSink {
+  float* partials;
+  unsigned* ticket;
+  float* out;
+};
+
+// This CTA's sum of d into its partial; the CTA that takes the last ticket
+// adds every CTA's partial (thread t those at t, t + threads, ..., then the
+// block in block_sum's fixed order), writes the total and sets the ticket
+// back to 0.  Every thread of the CTA calls it.
+__device__ __forceinline__ void dot_finish(float d, DotSink ds) {
+  __shared__ bool last;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nt = blockDim.x * blockDim.y;
+  const int nb = gridDim.x * gridDim.y;
+  const float tot = block_sum(d);
+  if (tid == 0) {
+    ds.partials[blockIdx.y * gridDim.x + blockIdx.x] = tot;
+    __threadfence();
+    last = atomicAdd(ds.ticket, 1u) == unsigned(nb - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // Thread tid adds partials tid, tid + nt, ... in that order, its loads
+  // issued kBatch at a time (one after another they would cost a device-
+  // memory latency each).
+  constexpr int kBatch = 16;
+  float acc = 0.f;
+  for (int k0 = tid; k0 < nb; k0 += kBatch * nt) {
+    float pv[kBatch];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int k = k0 + q * nt;
+      pv[q] = k < nb ? __ldcg(ds.partials + k) : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q)
+      if (k0 + q * nt < nb) acc += pv[q];
+  }
+  const float all = block_sum(acc);
+  if (tid == 0) {
+    *ds.out = all;
+    *ds.ticket = 0u;
+  }
 }
 
 // kSlab: the lattice is one rank's row slab (B9s and the slab matvec); its
 // rows -1 and m0 are v_top and v_bot, and the axis-0 masks use the global
-// row of sl.  Otherwise the rows wrap (B10).  A thread takes kVec
+// row of sl.  Otherwise the rows wrap (B10, B7).  A thread takes kVec
 // adjacent columns (4: every row start and pointer 16-byte aligned, the
 // copies 16 bytes wide; else 1), the CTA at (x, y) a strip of kGW columns
 // and rows y rows ..  A ring row holds the strip's column j0 + c at 4 + c,
@@ -81,7 +146,7 @@ gram_march_kernel(const float* __restrict__ v, const float* __restrict__ v_top,
                   const float* __restrict__ b, const float* __restrict__ oty,
                   const float* __restrict__ dta, const float* __restrict__ dtu,
                   const float* __restrict__ rho_p, const float* __restrict__ us_p, Scales sc,
-                  Slab sl, float* __restrict__ out, Lat L, int rows) {
+                  Slab sl, float* __restrict__ out, Lat L, int rows, DotSink ds) {
   constexpr int NIN = gram_inputs(MODE);
   constexpr int W = kGW;
   __shared__ __align__(16) float v_s[kGRing][W + 8];      // v's rows, a ring
@@ -138,10 +203,13 @@ gram_march_kernel(const float* __restrict__ v, const float* __restrict__ v_top,
   __syncthreads();
   const float rho = *rho_p;
   const float us = MODE == GRAM_RESIDUAL_FUSED ? *us_p : 0.f;
-  // rho * s^2 per block, as _tiled_gram_res_kernel's scalars.
-  const float g_mix = rho * (sc.mix * sc.mix);
-  const float g_ax1 = rho * (sc.ax1 * sc.ax1);
-  const float g_ax0 = rho * (sc.ax0 * sc.ax0);
+  // rho * s^2 per block, as _tiled_gram_res_kernel's scalars; B7's are
+  // (rho * s) * s, as _gram_matvec_kernel's.
+  constexpr bool kB7 = MODE == GRAM_MATVEC_DOT;
+  const float g_mix = kB7 ? rho * sc.mix * sc.mix : rho * (sc.mix * sc.mix);
+  const float g_ax1 = kB7 ? rho * sc.ax1 * sc.ax1 : rho * (sc.ax1 * sc.ax1);
+  const float g_ax0 = kB7 ? rho * sc.ax0 * sc.ax0 : rho * (sc.ax0 * sc.ax0);
+  float dsum = 0.f;  // this thread's share of B7's <v, A v>
   // The axis-1 masks of this thread's columns: at the column left of each
   // knot and at its own.
   float e1m[kVec], e10[kVec];
@@ -176,6 +244,7 @@ gram_march_kernel(const float* __restrict__ v, const float* __restrict__ v_top,
                                    g_mix, g_ax1, g_ax0);
         const float av = in[q] * vc[q + 1] + gv;
         o[q] = av;
+        if (kB7) dsum += vc[q + 1] * av;
         if (MODE == GRAM_RESIDUAL) o[q] = in[W + q] - av;
         if (MODE == GRAM_RESIDUAL_FUSED)
           o[q] = in[W + q] + rho * (in[2 * W + q] + us * in[3 * W + q]) - av;
@@ -190,6 +259,7 @@ gram_march_kernel(const float* __restrict__ v, const float* __restrict__ v_top,
     cp_async4_wait<kGAhead - 1>();
     __syncthreads();
   }
+  if constexpr (kB7) dot_finish(dsum, ds);
 }
 
 // B9, and B10 where the march's 16-byte path does not apply: one thread per
@@ -220,6 +290,39 @@ gram_knot_kernel(const float* __restrict__ v, const float* __restrict__ counts,
   out[c] = bv - av;
 }
 
+// B7 where the march's 16-byte path does not apply: one thread per knot,
+// gram_matvec_dot_kernel's arithmetic (xupdate.cu), a CTA taking kDotSteps
+// tiles of 32 x 8 knots down its column strip (fewer CTAs, so fewer
+// partials and tickets), then dot_finish.
+__global__ void __launch_bounds__(kThreads)
+gram_dot_knot_kernel(const float* __restrict__ v, const float* __restrict__ counts,
+                     const float* __restrict__ rho_p, Scales sc, float* __restrict__ out,
+                     DotSink ds, Lat L) {
+  const int j = blockIdx.x * TX + threadIdx.x;
+  const float rho = *rho_p;
+  const float g_mix = rho * sc.mix * sc.mix;
+  const float g_ax1 = rho * sc.ax1 * sc.ax1;
+  const float g_ax0 = rho * sc.ax0 * sc.ax0;
+  float d = 0.f;
+#pragma unroll
+  for (int t = 0; t < kDotSteps; ++t) {
+    const int i = (blockIdx.y * kDotSteps + t) * TY + threadIdx.y;
+    if (i < L.m0 && j < L.m1) {
+      const size_t c = size_t(i) * L.m1 + j;
+      const float av = counts[c] * v[c] + gram_at(v, i, j, L, g_mix, g_ax1, g_ax0);
+      out[c] = av;
+      d += v[c] * av;
+    }
+  }
+  dot_finish(d, ds);
+}
+
+// gram_dot_knot_kernel's grid: a column of kDotSteps tiles per CTA.
+inline dim3 gram_dot_knot_grid(Lat L) {
+  const int ty = (L.m0 + TY - 1) / TY;
+  return dim3((L.m1 + TX - 1) / TX, (ty + kDotSteps - 1) / kDotSteps);
+}
+
 // Rows per CTA: the lattice cut into about kGramCtas CTAs of kGW columns.
 inline int gram_rows_per_cta(Lat L) {
   const int strips = (L.m1 + kGW - 1) / kGW;
@@ -243,7 +346,7 @@ int launch_gram_mode(bool vec, const float* v, const float* v_top, const float* 
   const dim3 grid((L.m1 + kGW - 1) / kGW, (L.m0 + rows - 1) / rows);
 #define MVTV_MARCH(VEC)                                                                 \
   gram_march_kernel<MODE, kSlab, VEC><<<grid, kGW / VEC, 0, s>>>(                       \
-      v, v_top, v_bot, counts, b, oty, dta, dtu, rho, uscale, sc, sl, out, L, rows)
+      v, v_top, v_bot, counts, b, oty, dta, dtu, rho, uscale, sc, sl, out, L, rows, DotSink{})
   if constexpr (kSlab) {
     if (vec)
       MVTV_MARCH(4);
@@ -283,6 +386,20 @@ int launch_gram(int mode, const float* v, const float* v_top, const float* v_bot
   return int(cudaErrorInvalidValue);
 }
 
+// B7's route: the march on 16-byte aligned rows, else gram_dot_knot_kernel.
+inline bool gram_dot_march(Lat L, const float* v, const float* counts, const float* out) {
+  return L.m1 % 4 == 0 && aligned16(v) && aligned16(counts) && aligned16(out);
+}
+
+// The CTAs of B7's launch on either route: the partials it needs at most.
+inline int gram_dot_partials(Lat L) {
+  const int rows = gram_rows_per_cta(L);
+  const int march = ((L.m1 + kGW - 1) / kGW) * ((L.m0 + rows - 1) / rows);
+  const dim3 g = gram_dot_knot_grid(L);
+  const int knot = int(g.x * g.y);
+  return march > knot ? march : knot;
+}
+
 }  // namespace mvtv
 
 // B8 entry point: the dual stage of B1 with B8's flags, one launch.
@@ -306,6 +423,37 @@ extern "C" int mvtv_dual_update_tiled_2d(const float* theta, const float* u0, co
                          scal, Scales{s_mix, s_ax1, s_ax0}, t0, t1, a[0], a[1], a[2], u_out,
                          u_out + n, u_out + 2 * n, dta, dtu, partials, tickets, Lat{m0, m1},
                          kOne, static_cast<cudaStream_t>(stream)));
+  return int(cudaGetLastError());
+}
+
+// B7 entry point (gram_matvec_2d, pallas_kernels.py:143; kernel :124-140):
+// out = counts v + sum_b (rho s_b s_b) adj_b(fwd_b(v)) and <v, out> into
+// *dot, one launch, for any m0, m1.  partials holds
+// mvtv_gram_matvec_2d_partials(m0, m1) floats; tickets points to one
+// unsigned that is 0, and is 0 again after the launch.
+extern "C" int mvtv_gram_matvec_2d_partials(int m0, int m1) {
+  return mvtv::gram_dot_partials(mvtv::Lat{m0, m1});
+}
+
+extern "C" int mvtv_gram_matvec_2d(const float* v, const float* counts, const float* rho,
+                                   float s_mix, float s_ax1, float s_ax0, float* out, float* dot,
+                                   float* partials, unsigned* tickets, int m0, int m1,
+                                   void* stream) {
+  using namespace mvtv;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Lat L{m0, m1};
+  const Scales sc{s_mix, s_ax1, s_ax0};
+  const DotSink ds{partials, tickets, dot};
+  if (gram_dot_march(L, v, counts, out)) {
+    const int rows = gram_rows_per_cta(L);
+    const dim3 grid((m1 + kGW - 1) / kGW, (m0 + rows - 1) / rows);
+    gram_march_kernel<GRAM_MATVEC_DOT, false, 4><<<grid, kGW / 4, 0, s>>>(
+        v, nullptr, nullptr, counts, nullptr, nullptr, nullptr, nullptr, rho, nullptr, sc,
+        Slab{0, m0}, out, L, rows, ds);
+  } else {
+    gram_dot_knot_kernel<<<gram_dot_knot_grid(L), dim3(TX, TY), 0, s>>>(v, counts, rho, sc, out,
+                                                                      ds, L);
+  }
   return int(cudaGetLastError());
 }
 

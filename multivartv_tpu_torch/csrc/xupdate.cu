@@ -4,9 +4,9 @@
 // Replaces multivartv_tpu/ops/pallas_kernels.py:_xupdate_kernel_packed
 // (xupdate_pcg_2d_packed, B3) and the x-update half of _admm_chain (B4);
 // with the dense bf16 DCT matrices in place of the folded halves,
-// _xupdate_kernel (xupdate_pcg_2d, B6: lattices with an odd axis); and its
-// matvec stage, with the finish pass of its dot, is _gram_matvec_kernel
-// (gram_matvec_2d, B7: the fused-dot PCG's matvec).
+// _xupdate_kernel (xupdate_pcg_2d, B6: lattices with an odd axis).  Its
+// matvec stage computes _gram_matvec_kernel's function (B7, the fused-dot
+// PCG's matvec, whose own one-launch kernel is in tiled.cu).
 // The TPU kernel keeps every CG vector in VMEM inside one kernel; on the
 // H100 the vectors (r, p, Ap and the DCT operands: about 4 lattices, 4 MB
 // at 512^2) stay in the 50 MB L2 across a chain of stage kernels:
@@ -26,7 +26,7 @@
 // the spectral scale (its last product's epilogue); B6 keeps
 // spectral_scale_dot_kernel.  The
 // stencil and elementwise stages are bandwidth-bound passes over
-// L2-resident lattices (B7 is one of them).  Every stage takes a batch of
+// L2-resident lattices.  Every stage takes a batch of
 // problems as blockIdx.z (common.cuh, Batch), so B problems cost the same
 // launches as one.
 #include <cstdint>
@@ -233,23 +233,5 @@ extern "C" int mvtv_xupdate_pcg_2d(const float* b, const float* x0, const float*
   MVTV_CHECK(launch_residual(B_GIVEN, b, x0, counts, nullptr, nullptr, nullptr, nullptr, nullptr,
                              nullptr, nullptr, scal, sc, wb.r, L, kOne, s));
   MVTV_CHECK(run_pcg(x0, x, counts, tf, eigs, scal, sc, n_steps, wb, partials, L, kOne, s));
-  return int(cudaGetLastError());
-}
-
-// B7 entry point (gram_matvec_2d, pallas_kernels.py:143; kernel :124-140):
-// out = counts v + sum_b (rho s_b^2) adj_b(fwd_b(v)) and <v, out> into
-// scal[S_STATS]: the CG matvec's stage kernel above, then the fixed-order
-// finish pass, for any m0, m1.
-extern "C" int mvtv_gram_matvec_2d(const float* v, const float* counts, const float* rho,
-                                   float s_mix, float s_ax1, float s_ax0, float* out,
-                                   float* partials, float* scal, int m0, int m1, void* stream) {
-  using namespace mvtv;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Lat L{m0, m1};
-  MVTV_CHECK(launch_init_scalars(scal, nullptr, rho, nullptr, nullptr, nullptr, kOne, s));
-  gram_matvec_dot_kernel<<<stencil_grid(L), dim3(TX, TY), 0, s>>>(
-      v, counts, scal, Scales{s_mix, s_ax1, s_ax0}, out, partials, L, kOne);
-  MVTV_LAUNCHED();
-  MVTV_CHECK(launch_finish(partials, stencil_blocks(L), 1, scal + S_STATS, kOne, s));
   return int(cudaGetLastError());
 }

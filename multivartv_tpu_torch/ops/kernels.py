@@ -15,7 +15,7 @@ the three row-slab kernels of the sharded route:
   admm_iters_2d                 _admm_iters_kernel/_admm_chain (B4)          chain.cu (+ the above)
   admm_iters_2d_batched         _admm_iters_batched_kernel/_admm_chain (B5)  chain.cu (+ the above)
   xupdate_pcg_2d                _xupdate_kernel (B6)                         xupdate.cu, dct_mma.cu
-  gram_matvec_2d                _gram_matvec_kernel (B7)                     xupdate.cu, reduce.cu
+  gram_matvec_2d                _gram_matvec_kernel (B7)                     tiled.cu
   dual_update_tiled_2d          _tiled_dual_kernel (B8)                      tiled.cu, dual.cu
   gram_residual_tiled_2d        _tiled_gram_res_kernel (B9)                  tiled.cu
   gram_matvec_tiled_2d          _tiled_gram_kernel (B10)                     tiled.cu
@@ -32,14 +32,15 @@ B4 is the B = 1 case of B5's launcher: one chain of stage kernels, each
 with a batch coordinate, serves both.  B3-B5's folded DCT products run on
 the tensor cores from padded bf16 operands, the spectral scale fused into
 the forward transform (csrc/dct_fold.cu).  B6 is B3's chain with the dense
-bf16 DCT matrices (any axes), its products on the tensor cores; B7 is its
-matvec stage with the dot's finish pass.  B8 is B1's stage kernel with two
+bf16 DCT matrices (any axes), its products on the tensor cores; B7 is B10's
+row march (on 16-byte aligned rows) in a mode that also sums <v, A v>, its
+last CTA adding the partials, one launch.  B8 is B1's stage kernel with two
 template flags, B8s the same kernel in its slab mode; B9s, its matvec mode
-and B10 (on 16-byte aligned rows) are one row march (csrc/tiled.cu).  B11
-is B2's kernel, which takes any m0, m1.  B11, B14 and B11s have no ADMM
-caller, as in the JAX package.  ``gram_matvec_tiled_2d_shard`` is B9s's
-kernel in its matvec mode, the sharded PCG's matvec (the JAX package
-leaves it to XLA).
+and B10 (on 16-byte aligned rows) are one row march (csrc/tiled.cu).  B2
+is one launch, and B11 is B2's kernel, which takes any m0, m1.  B11, B14
+and B11s have no ADMM caller, as in the JAX package.
+``gram_matvec_tiled_2d_shard`` is B9s's kernel in its matvec mode, the
+sharded PCG's matvec (the JAX package leaves it to XLA).
 ``stream_copy`` and ``dual_struct`` (csrc/probe.cu) are measurement probes
 that no path launches.
 
@@ -60,6 +61,7 @@ float32 (ops/dct.py::dct2_packed).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -524,7 +526,7 @@ def rhs_tiled_3d_reference(alpha, u, oty, rho, u_scale, scales):
 
 _P, _F, _I, _LL = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    "mvtv_rhs_2d": [_P] * 9 + [_F] * 3 + [_P, _P, _I, _I, _P],
+    "mvtv_rhs_2d": [_P] * 9 + [_F] * 3 + [_P, _I, _I, _P],
     "mvtv_dual_update_2d": [_P] * 6 + [_F] * 3 + [_I, _I] + [_P] * 5 + [_I, _I, _P],
     "mvtv_xupdate_pcg_2d_packed": [_P] * 10 + [_F] * 3 + [_I] + [_P] * 4 + [_I, _I, _P],
     "mvtv_admm_iters_2d_batched": ([_P] * 9 + [_LL] + [_P] * 10 + [_F] * 3 + [_I, _I]
@@ -533,7 +535,8 @@ _ARGTYPES = {
     "mvtv_xupdate_pcg_2d_work": [_I, _I],
     "mvtv_xupdate_pcg_2d_packed_work": [_I, _I],
     "mvtv_admm_iters_2d_batched_work": [_I] * 3,
-    "mvtv_gram_matvec_2d": [_P] * 3 + [_F] * 3 + [_P] * 3 + [_I, _I, _P],
+    "mvtv_gram_matvec_2d": [_P] * 3 + [_F] * 3 + [_P] * 4 + [_I, _I, _P],
+    "mvtv_gram_matvec_2d_partials": [_I, _I],
     "mvtv_dual_update_tiled_2d": [_P] * 6 + [_F] * 3 + [_I] * 4 + [_P] * 7 + [_I, _I, _P],
     "mvtv_gram_tiled_2d": [_I] + [_P] * 8 + [_F] * 3 + [_P, _I, _I, _P],
     "mvtv_dual_update_tiled_3d": ([_P] * 10 + [_F] * 7 + [_I] * 5 + [_P] * 5 + [_LL, _P]
@@ -635,10 +638,10 @@ _TICKETS = {}
 
 
 def _ticket(device, stream: int) -> int:
-    """Device pointer of the dual stage's last-CTA ticket (csrc/dual.cu)
-    for one stream of ``device``: one int32, zeroed once, which every
-    launch leaves at 0; launches on one stream run in order, so they share
-    it."""
+    """Device pointer of the last-CTA ticket of B1's dual stage
+    (csrc/dual.cu) and B7 (csrc/tiled.cu) for one stream of ``device``:
+    one int32, zeroed once, which every launch leaves at 0; launches on one
+    stream run in order, so they share it."""
     key = (device.index, stream)
     if key not in _TICKETS:
         _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
@@ -659,16 +662,14 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def _launch_rhs(name: str, alpha, u, oty, rho, u_scale, scales) -> torch.Tensor:
-    """B2's kernel (csrc/rhs.cu) on CUDA tensors, counted under ``name``."""
-    shape, dev = tuple(oty.shape), oty.device
-    if u_scale is None:
-        u_scale = torch.ones((), dtype=torch.float32, device=dev)
-    lib = _lib()
+    """B2's kernel (csrc/rhs.cu) on CUDA tensors, one launch and one
+    allocation (b), counted under ``name``; u_scale None passes a null
+    pointer (1 in the kernel)."""
+    dev = oty.device
     b = torch.empty_like(oty)
-    scal = _scal_buffer(0, dev)
-    err = lib.mvtv_rhs_2d(*(t.data_ptr() for t in (*alpha, *u, oty)), _scalar_ptr(rho, dev),
-                          _scalar_ptr(u_scale, dev), *scales, b.data_ptr(), scal.data_ptr(),
-                          shape[0], shape[1], _stream(dev))
+    err = _lib().mvtv_rhs_2d(*(t.data_ptr() for t in (*alpha, *u, oty)), _scalar_ptr(rho, dev),
+                             None if u_scale is None else _scalar_ptr(u_scale, dev), *scales,
+                             b.data_ptr(), oty.shape[0], oty.shape[1], _stream(dev))
     _raise_on(err, name)
     launch_counts[name] += 1
     return b
@@ -771,24 +772,30 @@ def xupdate_pcg_2d(b: torch.Tensor, x0: torch.Tensor, counts: torch.Tensor, mats
     return x, scal[S_STATS + 5]
 
 
+@functools.lru_cache(maxsize=None)
+def _gram_dot_floats(shape) -> int:
+    """B7's work buffer: the dot, then the per-CTA partials of its launch."""
+    return 1 + _lib().mvtv_gram_matvec_2d_partials(*shape)
+
+
 def gram_matvec_2d(v: torch.Tensor, counts: torch.Tensor, rho, scales: Sequence[float]):
     """(A v, <v, A v>) with A = diag(counts) + rho D'D, any axes: the
-    fused-dot PCG's matvec."""
+    fused-dot PCG's matvec.  On the card one launch (csrc/tiled.cu) and two
+    allocations: A v, and the dot followed by the partials."""
     shape = tuple(v.shape)
     _check_lattices(shape, v, counts)
     if _route(v, counts) == "cpu":
         return gram_matvec_2d_reference(v, counts, rho, scales)
-    dev = v.device
-    lib = _lib()
+    dev, (m0, m1) = v.device, shape
     out = torch.empty_like(v)
-    scal = _scal_buffer(0, dev)
-    partials = _partials(shape, 1, dev)
-    err = lib.mvtv_gram_matvec_2d(v.data_ptr(), counts.data_ptr(), _scalar_ptr(rho, dev), *scales,
-                                  out.data_ptr(), partials.data_ptr(), scal.data_ptr(), shape[0],
-                                  shape[1], _stream(dev))
+    work = torch.empty(_gram_dot_floats((m0, m1)), dtype=torch.float32, device=dev)
+    stream, ptr = _stream(dev), work.data_ptr()
+    err = _lib().mvtv_gram_matvec_2d(v.data_ptr(), counts.data_ptr(), _scalar_ptr(rho, dev),
+                                     *scales, out.data_ptr(), ptr, ptr + 4,
+                                     _ticket(dev, stream), m0, m1, stream)
     _raise_on(err, "gram_matvec_2d")
     launch_counts["gram_matvec_2d"] += 1
-    return out, scal[S_STATS]
+    return out, work[0]
 
 
 def _check_vectors(n: int, *vectors):

@@ -65,8 +65,8 @@ tests walk the card's route; only each kernel wrapper looks at the device):
     package's plain fallthrough (xupdate.py:502-527).  With
     ``bf16_residual_escape`` a stalled bf16 solve (Boyd, dct_pcg) finishes
     on the exact route within the same cap, where the dense DCT matrices
-    exist (up to 2048 per axis).  p = 1 raises NotImplementedError
-    (ROADMAP A9).
+    exist (up to 2048 per axis).  p = 1 runs the exact route (the JAX
+    package's exact tridiagonal solve is ROADMAP A9).
   * exact route (``use_kernels=False``): per-iteration plain PyTorch with
     the tolerance-driven float32 PCG (or the configured x-solver), the
     explicit comparison arm.
@@ -267,7 +267,7 @@ def pad_single_applies(ops: Operators, cfg: SolverConfig) -> bool:
 
 def solve_route(ops: Operators, cfg: SolverConfig) -> Optional[str]:
     """The route of a solve on the lattice of ops (after padding): None
-    (the exact-f32 route), "whole", "tiled", "spectral2", "tiled3",
+    (the exact-f32 route, and every p = 1 solve), "whole", "tiled", "spectral2", "tiled3",
     "spectral3" or "spectralN" (lattice_route), or "shard" for operators
     cut to row slabs (a sharded fit, whatever use_kernels says: the row
     slabs have no other route)."""
@@ -283,11 +283,8 @@ def solve_route(ops: Operators, cfg: SolverConfig) -> Optional[str]:
         return "shard"
     if not cfg.use_kernels:
         return None
-    p = len(ops.m)
-    if p == 1:
-        raise NotImplementedError(
-            "p = 1 has no kernel route yet (ROADMAP A9); use_kernels=False runs the exact "
-            "route")
+    if len(ops.m) == 1:     # no kernel route until the tridiagonal solve (ROADMAP A9)
+        return None
     m = pad_lib.pad_target_m(ops.m) if pad_single_applies(ops, cfg) else ops.m
     return lattice_route(m, _full_set(ops))
 

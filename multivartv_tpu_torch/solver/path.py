@@ -59,7 +59,9 @@ def create_lambdas(lambda_max: torch.Tensor, pcfg: PathConfig) -> torch.Tensor:
     steps = torch.linspace(0.0, 1.0, pcfg.n_lambda, dtype=lambda_max.dtype,
                            device=lambda_max.device)
     logs = lo + (hi - lo) * steps
-    logs[-1] = hi     # the end point exactly, as jnp.linspace sets it
+    if pcfg.n_lambda > 1:
+        logs[-1] = hi     # the end point exactly, as jnp.linspace sets it
+    # one point: jnp.linspace(lo, hi, 1) is [lo], lambda_max * lambda_min_ratio
     return torch.exp(logs).flip(0)
 
 

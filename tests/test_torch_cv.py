@@ -3,7 +3,8 @@ JAX package on the CPU: per-lambda MSEs and iterations of solve_path and
 solve_path_batch on the JAX package's fold problems (exact route), the
 kernel route's batched path (B5's plain version), the sweeps of
 solver/batch.py, and the small units (fold labels, training masks, the
-store budget, the point-cloud search).  mvtv itself: test_torch_mvtv.py."""
+store budget, the point-cloud search, the lambda grid, with mvtv on a
+one-point grid).  mvtv itself: test_torch_mvtv.py."""
 
 import dataclasses
 import logging
@@ -65,6 +66,49 @@ def test_kfold_indices_balance():
         np.testing.assert_array_equal(np.sort(labels), np.sort(np.arange(n) % k))
         np.testing.assert_array_equal(labels, cv.kfold_indices(n, k, 123).numpy())
     assert not np.array_equal(cv.kfold_indices(1000, 3, 1).numpy(), labels)
+
+
+@pytest.mark.parametrize("n_lambda", [1, 2, 3])
+def test_create_lambdas_matches_jax(n_lambda):
+    """The descending log grid against JAX's jnp.linspace one (rtol 1e-6):
+    a one-point grid is [lambda_max * lambda_min_ratio], as jnp.linspace(lo,
+    hi, 1) = [lo] gives it, not [lambda_max] (ROADMAP C4)."""
+    lmax = np.float32(100.0)
+    got = path.create_lambdas(torch.tensor(lmax), PathConfig(n_lambda=n_lambda)).numpy()
+    want = np.asarray(jpath.create_lambdas(jnp.float32(lmax), JPathConfig(n_lambda=n_lambda)))
+    assert got.shape == want.shape == (n_lambda,)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    np.testing.assert_allclose(got[-1], lmax * PathConfig().lambda_min_ratio, rtol=1e-6)
+
+
+def test_mvtv_single_lambda_matches_jax():
+    """mvtv(n_lambda=1, folds=3) on the default config, with JAX's fold
+    labels: the one lambda is lambda_max * lambda_min_ratio as in JAX
+    (rtol 1e-5), and the objective at it agrees to 2e-5 (ROADMAP C4: the
+    port fitted the constant at lambda_max, 0.60 from JAX's fit)."""
+    rng = np.random.RandomState(1)
+    n, m = 800, (8, 8)
+    x = rng.uniform(-1, 1, (n, 2))
+    y = np.exp(-(x[:, 0] ** 2 + x[:, 1] ** 2)) + rng.randn(n) * 0.3
+    labels = torch.as_tensor(np.array(jcv.kfold_indices(n, FOLDS, 123)), dtype=torch.int64)
+    jm = japi.mvtv(x, y, m=m, n_lambda=1, folds=FOLDS)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cv, "kfold_indices", lambda n_, k, seed: labels)
+        pm = mt.mvtv(x, y, m=m, n_lambda=1, folds=FOLDS, device="cpu")
+
+    def objective(model):
+        th = np.asarray(model.theta_lattice, np.float64)
+        d0, d1 = (float(v) for v in np.asarray(model.mesh_spec.deltas))
+        fid = 0.5 * np.sum((model.y - np.asarray(model.fitted, np.float64)) ** 2)
+        pen = (np.abs(th[1:, 1:] - th[1:, :-1] - th[:-1, 1:] + th[:-1, :-1]).sum()
+               + d0 * np.abs(th[:, 1:] - th[:, :-1]).sum()
+               + d1 * np.abs(th[1:] - th[:-1]).sum())
+        return fid + model.lambda_minmse * pen
+
+    assert pm.lambdas.shape == (1,)
+    np.testing.assert_allclose(pm.lambdas, np.asarray(jm.lambdas), rtol=1e-5)
+    np.testing.assert_allclose(pm.lambda_minmse, jm.lambda_minmse, rtol=1e-5)
+    assert abs(objective(pm) - objective(jm)) <= 2e-5 * abs(objective(jm))
 
 
 def test_build_problem_train_mask_matches_jax(data):

@@ -2,8 +2,9 @@
 package's fold labels (fed to the port through its kfold_indices): the
 lambda grid, the CV curve, the chosen index and lambda_1se, the objective
 at the chosen lambda, the folds = 1 bypass, store="mse" with its fresh
-solve, the kernel route (B5 and B4 through their plain versions), and
-MVTVModel.predict with and without an explicit mesh."""
+solve, the kernel route (B5 and B4 through their plain versions),
+MVTVModel.predict with and without an explicit mesh, and p = 1 (mvtv and
+mvtv_one) under the default config."""
 
 import dataclasses
 
@@ -136,6 +137,46 @@ def test_predict_matches_jax(jax_fits, port_fits):
     assert np.mean(got != pm.predict(xq)) <= 1e-3     # the mesh is the lattice itself
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         pm.plot()
+
+
+def univariate(n, seed=1):
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-1, 1, n)
+    return x, np.exp(-x ** 2) + rng.randn(n) * 0.3
+
+
+@pytest.mark.parametrize("column", [False, True], ids=["x(n,)", "x(n,1)"])
+def test_mvtv_p1_default_config_matches_jax(column, monkeypatch):
+    """p = 1 under the default config runs the exact route (ROADMAP C5: it
+    raised; the JAX package's exact tridiagonal solve is A9), with JAX's
+    fold labels: the same chosen index, the CV curve at rtol 1e-4, on x of
+    shape (n,) and (n, 1)."""
+    n = 400
+    x, y = univariate(n)
+    x = x[:, None] if column else x
+    labels = torch.as_tensor(np.array(jcv.kfold_indices(n, 2, 123)), dtype=torch.int64)
+    monkeypatch.setattr(cv, "kfold_indices", lambda n_, k, seed: labels)
+    jm = japi.mvtv(x, y, n_lambda=4, folds=2)
+    pm = mt.mvtv(x, y, n_lambda=4, folds=2, device="cpu")
+    assert pm.lambda_minmse_ind == jm.lambda_minmse_ind
+    np.testing.assert_allclose(pm.cv_mses, np.asarray(jm.cv_mses), rtol=1e-4)
+    assert pm.theta_lattice.shape == tuple(np.asarray(jm.theta_lattice).shape)
+
+
+def test_mvtv_one_p1_default_config_matches_jax():
+    """mvtv_one on one column under the default config (the exact route):
+    0.5 ||y - fitted||^2 + lambda ||D theta||_1 within 2e-5 of JAX's."""
+    x, y = univariate(400, seed=5)
+
+    def objective(res):
+        th = np.asarray(res["theta_lattice"], np.float64).reshape(-1)
+        fid = 0.5 * np.sum((res["y"] - np.asarray(res["fitted"], np.float64)) ** 2)
+        return fid + res["lambda"] * np.abs(np.diff(th)).sum()
+
+    jres = japi.mvtv_one(x, y, lam=1.0)
+    pres = mt.mvtv_one(x, y, lam=1.0, device="cpu")
+    assert pres["diagnostics"]["converged"]
+    assert abs(objective(pres) - objective(jres)) <= 2e-5 * abs(objective(jres))
 
 
 def test_mvtv_cuda_default_raises_without_cuda(data):
