@@ -10,20 +10,18 @@ paths through the entry points a user calls: mvtv_one on two workloads,
 checked against the exact-f32 route; the cross-validated mvtv (5 folds,
 20 lambdas) at n = 1e5 on the default 316^2 mesh, checked against the JAX
 package's own fit of the same data (numbers embedded below) and, at 128^2,
-against the port's exact-f32 route, and on one column (p = 1, the exact
-route under the default config) against the same call on the CPU; and
+against the port's exact-f32 route, and on one column (p = 1: the
+"tridiag" route, T1 on every fold) against the same call on the CPU; and
 the large-lattice route above 2^20 knots (the tiled kernels under the
 spectral-correction CG): mvtv_one at
-2048^2 (n = 2^22) and 4096^2 (n = 2^24) and on a thin 192 x 8192 lattice,
-and mvtv(folds=1, n_lambda=5) at 2048^2, checked against the exact-f32
-route on the card and lambda_max against a float64 numpy and scipy
-recomputation; and the p = 3 route: mvtv_one at 256^3 and 255 x 255 x 256
-(the tiled3 kernels B12 and B13 under the same CG) and at 128^3 (no
-kernel), and mvtv(folds=1, n_lambda=5) at 256 x 256 x 64, checked against
-the exact-f32 route and lambda_max at 256^3 against the same
-recomputation, and mvtv(folds=3, n_lambda=3) there (the CV folds off the
-whole-lattice route, each on B12 and B13), its chosen index in the
-exact-f32 route's tie set; and the sibling solver profiles and the remaining 2-D
+2048^2 (n = 2^22) and on a thin 192 x 8192 lattice, checked against the
+exact-f32 route on the card (4096^2, n = 2^24, and mvtv(folds=1,
+n_lambda=5) at 2048^2 in phase 14); and the p = 3 route: mvtv_one at 256^3 (the tiled3
+kernels B12 and B13 under the same CG; 255 x 255 x 256 in phase 14) and at
+128^3 (no kernel), and mvtv(folds=1, n_lambda=5) at 256 x 256 x 64,
+checked against the exact-f32 route and lambda_max at 256^3 against the
+same recomputation (mvtv(folds=3, n_lambda=3) there, the CV folds off the
+whole-lattice route, in phase 18); and the sibling solver profiles and the remaining 2-D
 x-update routes: mvtv_one at 1023^2 under the standalone C++ sibling's
 profile (theta_inf stopping, unpadded: B2, B6 and B1 every iteration), at
 1024^2 past the one-kernel gate of a 96 MB TPU part (B7 under the fused-dot
@@ -44,7 +42,17 @@ the whole-lattice kernels; and the two repaired routes, mvtv_one at
 exact-f32 route.  Phase 3 also holds B6 at 511 x 2047 and B12 and B13 at
 258 x 130 x 136, shapes that leave remainders in their kernels' tiles, B13
 at the C3 folds' 256 x 256 x 64, and B1 and B7 at 1023^2 and 511 x 2047
-(B7 also at 1024^2, its row march) with a second run bit for bit.
+(B7 also at 1024^2, its row march) with a second run bit for bit, and T1
+(the exact p = 1 x-update, csrc/tridiag.cu) against the plain cyclic
+reduction from 1 to 10^6 + 1 knots and g = rho s^2 from 1e-4 to 50, with a
+second run bit for bit.  Phase 20 drives the p = 1 path and user meshes:
+mvtv_one on the 1-D fused lasso (m = N = 2^20, mesh = sorted x, float32
+knots that coincide left empty) against the exact route and its
+lambda_max against a float64 recomputation, mvtv(folds=5, n_lambda=20) on
+the fused lasso at N = 1e5 against the JAX package's fit (FUSED_JAX), and
+mvtv_one on a 316^2 point cloud, the kd-tree's assignment against the
+device brute force's; phase 21 times T1 (316, 4096 and 2^20 knots) and the
+fused-lasso iteration.
 It shows through the launch counters that the paths ran every kernel,
 measures the device-memory ceiling with a streaming-copy probe, times each
 kernel beside its plain version and its bound (B3-B5 also with their
@@ -63,13 +71,19 @@ exits non-zero at once.  It imports nothing of JAX.  Phases: 1 device,
 7 timing, 8 mvtv with the default 100 lambdas, 9 the large-lattice path,
 10 its timing and profile, 12 the p = 3 path, 13 its timing and profile,
 15 the profiles' and x-update routes' fits, 16 the sharded path and the
-repaired routes, 17 the row-slab kernels' timing.
+repaired routes, 17 the row-slab kernels' timing, 20 the p = 1 path and
+user meshes, 21 T1's timing and the fused-lasso iteration.
 Phase 11, run only when listed, re-solves the start of phase 9's 2048^2
 path at a tighter tolerance on both routes (the witness for that phase's
-gate); phase 14, run only when listed, holds the 256^3 and
-255 x 255 x 256 fits and the 256^3 lambda path against the exact-f32 route
-(about 16 minutes on an H100); phase 18, run only when listed, re-runs
-phase 12's C3 check at tol = 1e-5 (the witness for its tolerances);
+gate); phase 14, run only when listed, runs the 4096^2 fits of phase 9
+(lambda = 0.05 against the exact-f32 route, lambda_max against the float64
+recomputation) and its 2048^2 lambda path on both routes, and holds the
+256^3 and 255 x 255 x 256 fits and the 256^3 lambda path against the
+exact-f32 route (about 20 minutes on an H100, past the default run's limit);
+phase 18, run only when listed, runs C3's check (mvtv(folds=3,
+n_lambda=3) at 256 x 256 x 64 on the tiled3 route against the exact-f32
+route's tie set) at tol = 1e-4 and again at 1e-5 (the witness for its
+tolerances; about 18 minutes);
 phase 19, run only when listed, prints digests of the kernels' outputs on
 seeded inputs and times B1, B2, B4, B5, B7, B8, B9, B9s and its matvec,
 B10, B11s and B13 at their launch sizes with nothing else (copied into an older
@@ -82,6 +96,7 @@ phase header carries the seconds since the start.
     python3 chip_smoke.py --phases 1,2,16,17  # the sharded path and its timing
     python3 chip_smoke.py --phases 1,2,11     # the path-gap witness
     python3 chip_smoke.py --phases 1,2,19     # kernels at their launch sizes
+    python3 chip_smoke.py --phases 1,2,20,21  # the p = 1 path, meshes, T1's timing
 """
 
 from __future__ import annotations
@@ -287,6 +302,12 @@ LARGE = {
 # 1e-5 optimum).  A lower objective is a fit closer to the optimum.
 LARGE_GAP = 2e-5
 TILED = ("dual_update_tiled_2d", "gram_residual_tiled_2d", "gram_matvec_tiled_2d")
+# Phase 9's mvtv_one fits (LARGE name, lambda; None: lambda_max), and the
+# 4096^2 fits that phase 14 runs with mvtv(folds=1, n_lambda=5) at 2048^2
+# (51 and 104 s on an H100 with their exact arms), left out of the default
+# run for time since the p = 1 path of phase 20 joined it.
+LARGE_FITS = (("2048^2 n=2^22", 0.05), ("192x8192 n=2^21", 0.05))
+LARGE_DEEP = (("4096^2 n=2^24", 0.05), ("4096^2 n=2^24", None))
 
 
 def cube_data(n: int, seed: int = 0):
@@ -310,9 +331,11 @@ CUBES = {
 # Phase 12's mvtv_one fits, those of them held against the exact-f32 route
 # there, and its lambda path's lattice: 2^22 knots, the tiled3 route in the
 # packed layout (64 / 2 < 128).  The 256^3 and 255 x 255 x 256 exact arms
-# (88-90 s each on an H100) and the 256^3 path on both routes (289.5 and
-# 433.9 s) run in phase 14, to keep the default run well inside its 1200 s.
-FITS3 = ("256^3 n=2^22", "255x255x256 n=2^22", "128^3 n=2^21")
+# (88-90 s each on an H100), the 255 x 255 x 256 fit itself (48 s) and the
+# 256^3 path on both routes (289.5 and 433.9 s) run in phase 14, and C3's
+# check (109 s) in phase 18, to keep the default run inside 950 s with the
+# p = 1 path of phase 20.
+FITS3 = ("256^3 n=2^22", "128^3 n=2^21")
 EXACT3 = ("128^3 n=2^21",)
 PATH3 = "256x256x64 n=2^22"
 TILED3 = ("dual_update_tiled_3d", "gram_residual_tiled_3d", "rhs_tiled_3d")
@@ -992,6 +1015,7 @@ def phase_kernels(device, timed):
     compare_tiled3(device, errs)
     compare_shard(device, errs)
     probe_dual_struct(device, errs, timed)
+    compare_tridiag(device, errs)
     return errs
 
 
@@ -1109,7 +1133,7 @@ def model_objective(model, i=None) -> float:
                         "mesh_spec": model.mesh_spec, "lambda": float(model.lambdas[i])})
 
 
-def mvtv_fit(x, y, m, device, n_lambda=20, folds=5, **cfg):
+def mvtv_fit(x, y, m, device, n_lambda=20, folds=5, mesh=None, lambdas=None, **cfg):
     """mvtv on the card: (model, its CVResult (None for folds = 1), its
     full-data PathResult, seconds).  The two results are caught on their way
     through solver.cv.cross_validate and solver.path.solve_path."""
@@ -1132,8 +1156,8 @@ def mvtv_fit(x, y, m, device, n_lambda=20, folds=5, **cfg):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model = mvtv(x, y, m=m, n_lambda=n_lambda, folds=folds, device=device,
-                     solver_config=SolverConfig(**cfg))
+        model = mvtv(x, y, m=m, mesh=mesh, n_lambda=n_lambda, lambdas=lambdas, folds=folds,
+                     device=device, solver_config=SolverConfig(**cfg))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     finally:
@@ -1160,14 +1184,15 @@ def describe_mvtv(label, model, cvres, fpath, seconds, max_iters=3000):
     log(f"    CV curve {[float(f'{v:.8g}') for v in model.cv_mses]}")
 
 
-# The p = 1 fit (ROADMAP C5): one column, default config and mesh, on the
+# The p = 1 fit on the default mesh: one column, default config, on the
 # card against the same call on the CPU (n, n_lambda, folds, seed).
 P1 = (2000, 10, 3, 21)
 
 
 def check_p1(device):
-    """mvtv on one column under the default config (the exact route: p = 1
-    has no kernel route until ROADMAP A9) on the card and on the CPU: the
+    """mvtv on one column under the default config (the "tridiag" route:
+    T1 on the card, the plain cyclic reduction on the CPU) on the card and
+    on the CPU: T1 launched once per iteration of every fold solve, the
     card's chosen index in the CPU run's tie set (CV MSE within MVTV_TIE of
     its minimum), and the objective at it within 1e-5."""
     n, n_lambda, folds, seed = P1
@@ -1175,14 +1200,17 @@ def check_p1(device):
     x = rng.uniform(-1, 1, (n, 1))
     y = np.exp(-x[:, 0] ** 2) + rng.randn(n) * 0.3
     log(f"phase 4/5: mvtv on one column (p = 1, n = {n}, n_lambda = {n_lambda}, folds = "
-        f"{folds}), default config, card vs CPU")
-    card, _, _, seconds = mvtv_fit(x, y, None, device, n_lambda=n_lambda, folds=folds)
+        f"{folds}), default config (the tridiag route), card vs CPU")
+    with t1_fold_spy() as seen:
+        card, _, _, seconds = mvtv_fit(x, y, None, device, n_lambda=n_lambda, folds=folds)
+    check_t1_folds("mvtv p = 1", seen, folds, n_lambda)
     cpu, _, _, _ = mvtv_fit(x, y, None, "cpu", n_lambda=n_lambda, folds=folds)
     cc = np.asarray(cpu.cv_mses, np.float64)
     best = card.lambda_minmse_ind
     ties = np.nonzero(cc <= cc.min() * (1 + MVTV_TIE))[0].tolist()
-    log(f"  p = 1 mesh {card.m}: {seconds:.2f} s on the card; CV curve {card.cv_mses.tolist()} "
-        f"(CPU {cc.tolist()})")
+    log(f"  p = 1 mesh {card.m}: {seconds:.2f} s on the card [{GPU_LINE}]; CV curve "
+        f"{card.cv_mses.tolist()} (CPU {cc.tolist()}); iterations per lambda "
+        f"{[e['iters'] for e in card.models]}")
     check(best in ties, f"mvtv p = 1: chosen index {best} in the CPU run's tie set {ties}")
     obj, ref = model_objective(card), model_objective(cpu, best)
     check(abs(obj / ref - 1) <= 1e-5, f"mvtv p = 1: objective at the chosen lambda {obj:.9e} "
@@ -1264,21 +1292,28 @@ def lam_max64(x, y, spec) -> float:
     alone, independent of the port's code: every sample binned to its
     nearest knot of the fit's lattice (spec: float32 knots and cell sizes)
     with the float32 operations the mesh's definition prescribes (an exact
-    midpoint goes to the lower knot), so that the samples near a midpoint
-    land where the fit put them; O'y summed in float64, (D'D)^+ O'y through
-    scipy's DCT and the Gram eigenvalues of the full block set in closed
-    form, prod_j (mu_j + d_j^2) - prod_j d_j^2 with the Neumann eigenvalues
-    mu = 4 sin^2(pi k / 2m) per axis, then 5 ||D (D'D)^+ O'y||_inf (the
-    reference's scale, utils.cpp:354).  p = 2 or 3."""
+    midpoint goes to the lower knot; on an irregular axis the nearest of
+    the two knots around it, and of equal float32 knots the first), so that
+    the samples near a midpoint land where the fit put them; O'y summed in
+    float64, (D'D)^+ O'y through scipy's DCT and the Gram eigenvalues of
+    the full block set in closed form, prod_j (mu_j + d_j^2) - prod_j d_j^2
+    with the Neumann eigenvalues mu = 4 sin^2(pi k / 2m) per axis, then
+    5 ||D (D'D)^+ O'y||_inf (the reference's scale, utils.cpp:354).  Any
+    p; x of shape (n, p) or (n,) for p = 1."""
     import scipy.fft
     m = tuple(int(v) for v in spec.m)
-    x = np.asarray(x, np.float32)
+    x = np.asarray(x, np.float32).reshape(len(x), len(m))
     flat = np.zeros(len(x), np.int64)
     for j, mj in enumerate(m):
         k = spec.knots[j].cpu().numpy().astype(np.float32)
-        t = (x[:, j] - k[0]) / ((k[-1] - k[0]) / np.float32(mj - 1))
-        i = np.floor(t)
-        flat = flat * mj + np.clip(i.astype(np.int64) + ((t - i) > 0.5), 0, mj - 1)
+        if spec.regular:
+            t = (x[:, j] - k[0]) / ((k[-1] - k[0]) / np.float32(mj - 1))
+            i = np.floor(t)
+            idx = i.astype(np.int64) + ((t - i) > 0.5)
+        else:
+            hi = np.clip(np.searchsorted(k, x[:, j], side="left"), 1, mj - 1)
+            idx = np.where((k[hi] - x[:, j]) < (x[:, j] - k[hi - 1]), hi, hi - 1)
+        flat = flat * mj + np.clip(idx, 0, mj - 1)
     oty = np.bincount(flat, weights=np.asarray(y, np.float64),
                       minlength=int(np.prod(m))).reshape(m)
     d = spec.deltas.double().cpu().numpy()
@@ -1318,16 +1353,16 @@ def float32_lambda_max(x, y, device) -> float:
     return float(PathConfig().lam_max_scale * diff.blocks_abs_max(ops.apply_D(pinv)))
 
 
-def phase_large(device):
+def phase_large(device, work=LARGE_FITS, path: bool = False, tag: str = "phase 9"):
     """Phase 9, the third main path: mvtv_one above 2^20 knots (the tiled
-    route: B8, B9 or B10 and the spectral-correction CG) and mvtv(folds=1,
+    route: B8, B9 or B10 and the spectral-correction CG; work: (LARGE name,
+    lambda or None for lambda_max)) and, with path, mvtv(folds=1,
     n_lambda=5) at 2048^2 under the launch counters, then the same problems
-    on the port's exact-f32 route (launches not counted)."""
+    on the port's exact-f32 route (launches not counted).  Phase 14 runs
+    the LARGE_DEEP fits and the path through it."""
     from multivartv_tpu_torch.ops import kernels as K
 
-    log("phase 9: the large-lattice route (above 2^20 knots) on the card, counters reset")
-    work = [("2048^2 n=2^22", 0.05), ("4096^2 n=2^24", 0.05), ("4096^2 n=2^24", None),
-            ("192x8192 n=2^21", 0.05)]
+    log(f"{tag}: the large-lattice route (above 2^20 knots) on the card, counters reset")
     data = {name: LARGE[name][0]() for name in dict.fromkeys(n for n, _ in work)}
     K.reset_launch_counts()
     fits = []
@@ -1342,14 +1377,15 @@ def phase_large(device):
             f"{res['diagnostics']['converged']}, {res['seconds']:.2f} s [{GPU_LINE}], "
             f"launches {used}")
         fits.append((label, name, lam, res, used))
-    x2, y2 = data["2048^2 n=2^22"]
-    before = dict(K.launch_counts)
-    model, _, fpath, seconds = mvtv_fit(x2, y2, None, device, n_lambda=5, folds=1)
-    used_path = {k: K.launch_counts[k] - before[k] for k in K.KERNELS
-                 if K.launch_counts[k] != before[k]}
-    log(f"  mvtv 2048^2 folds=1 n_lambda=5: {seconds:.2f} s [{GPU_LINE}], chosen index "
-        f"{model.lambda_minmse_ind}, iterations per lambda {fpath.iters.tolist()} (exact-f32 "
-        f"{fpath.exact_iters.tolist()}), launches {used_path}")
+    if path:
+        x2, y2 = data.get("2048^2 n=2^22") or LARGE["2048^2 n=2^22"][0]()
+        before = dict(K.launch_counts)
+        model, _, fpath, seconds = mvtv_fit(x2, y2, None, device, n_lambda=5, folds=1)
+        used_path = {k: K.launch_counts[k] - before[k] for k in K.KERNELS
+                     if K.launch_counts[k] != before[k]}
+        log(f"  mvtv 2048^2 folds=1 n_lambda=5: {seconds:.2f} s [{GPU_LINE}], chosen index "
+            f"{model.lambda_minmse_ind}, iterations per lambda {fpath.iters.tolist()} "
+            f"(exact-f32 {fpath.exact_iters.tolist()}), launches {used_path}")
     launches = dict(K.launch_counts)
     log(f"  large-lattice launch counts: {launches}")
 
@@ -1362,13 +1398,17 @@ def phase_large(device):
             check(used.get(k, 0) == tiled_iters,
                   f"{label}: {k} launched once per tiled iteration ({used.get(k, 0)} for "
                   f"{tiled_iters})")
-    for k in TILED:
+    for k in TILED[:2]:
         check(launches[k] > 0, f"the large-lattice path launched {k} ({launches[k]} times)")
-    check(used_path.get("dual_update_tiled_2d", 0) > 0,
-          f"mvtv 2048^2 folds=1: dual_update_tiled_2d launched "
-          f"({used_path.get('dual_update_tiled_2d', 0)} times)")
+    if any(name.startswith("192x") for name, _ in work):
+        check(launches[TILED[2]] > 0,
+              f"the large-lattice path launched {TILED[2]} ({launches[TILED[2]]} times)")
+    if path:
+        check(used_path.get("dual_update_tiled_2d", 0) > 0,
+              f"mvtv 2048^2 folds=1: dual_update_tiled_2d launched "
+              f"({used_path.get('dual_update_tiled_2d', 0)} times)")
 
-    log("phase 9: the same problems on the exact-f32 route (use_kernels=False)")
+    log(f"{tag}: the same problems on the exact-f32 route (use_kernels=False)")
     for label, name, lam, res, _ in fits:
         (x, y), m = data[name], LARGE[name][1]
         check(bool(np.all(np.isfinite(res["theta_lattice"]))), f"{label}: theta finite")
@@ -1388,6 +1428,8 @@ def phase_large(device):
             f"{res['objective']:.9e} vs {ref['objective']:.9e}")
         check(gap <= LARGE_GAP, f"{label}: objective (tiled - exact) / |exact| {gap:+.3e} <= "
               f"{LARGE_GAP:g}")
+    if not path:
+        return launches
 
     em, _, epath, eseconds = mvtv_fit(x2, y2, None, device, n_lambda=5, folds=1,
                                       use_kernels=False)
@@ -1547,19 +1589,22 @@ def check_cube_folds(device, tol: float = 1e-4) -> dict:
 
 
 def phase_c3_tight(device):
-    """Phase 18, run only when asked for (--phases 18; about 16 minutes on
-    an H100): the witness for check_cube_folds' tolerances, the same check
-    with both routes at tol = 1e-5."""
+    """Phase 18, run only when asked for (--phases 18; about 18 minutes on
+    an H100): C3's card check (check_cube_folds at tol = 1e-4, left out of
+    the default run for time), then its witness, the same check with both
+    routes at tol = 1e-5."""
+    log("phase 18: C3's card check (CV folds on the tiled3 route) at tol = 1e-4")
+    check_cube_folds(device)
     log("phase 18: C3's card check at tol = 1e-5 (the witness for its tolerances)")
     check_cube_folds(device, tol=1e-5)
 
 
 def phase_cubes(device):
     """Phase 12, the fourth main path, under the launch counters: mvtv_one
-    on 3-D lattices (256^3 and 255 x 255 x 256 on the tiled3 route, 128^3
-    on the no-kernel spectral route) and mvtv(folds=1, n_lambda=5) at
-    256 x 256 x 64 (tiled3 in the packed layout: B13 with b given), and
-    mvtv(folds=3, n_lambda=3) there (check_cube_folds, C3).  Then,
+    on 3-D lattices (256^3 on the tiled3 route, 128^3 on the no-kernel
+    spectral route) and mvtv(folds=1, n_lambda=5) at 256 x 256 x 64
+    (tiled3 in the packed layout: B13 with b given; C3's folds there run in
+    phase 18).  Then,
     launches not counted: 128^3 against the exact-f32 route,
     the path's chosen lambda against a cold exact-f32 fit there, lambda_max
     at 256^3 against lam_max64, and predict (phase 14 holds the rest
@@ -1598,10 +1643,6 @@ def phase_cubes(device):
         check(used_path.get(k, 0) > 0, f"mvtv {PATH3} folds=1: {k} launched "
               f"({used_path.get(k, 0)} times)")
 
-    log("phase 12: CV folds on the tiled3 route (C3), counters kept")
-    used_folds = check_cube_folds(device)
-    launches = {k: launches[k] + used_folds.get(k, 0) for k in launches}
-
     log("phase 12: against the exact-f32 route (use_kernels=False)")
     for name, m, lam, res, _ in fits:
         if name in EXACT3:
@@ -1638,11 +1679,14 @@ def phase_cubes(device):
 
 
 def phase_cubes_exact(device):
-    """Phase 14, run only when asked for (--phases 14): the exact-route
-    arms that phase 12 leaves out for time: 256^3 and 255 x 255 x 256
-    against the exact-f32 route, and mvtv(folds=1, n_lambda=5) at 256^3 on
-    both routes (the same grid, the same chosen index, the objective at it
-    one-sided, lambda_max against lam_max64)."""
+    """Phase 14, run only when asked for (--phases 14): the fits that
+    phases 9 and 12 leave out for time: 4096^2 at lambda = 0.05 against the
+    exact-f32 route and at lambda_max against lam_max64 (LARGE_DEEP),
+    mvtv(folds=1, n_lambda=5) at 2048^2 on both routes; 256^3
+    and 255 x 255 x 256 against the exact-f32 route, and mvtv(folds=1,
+    n_lambda=5) at 256^3 on both routes (the same grid, the same chosen
+    index, the objective at it one-sided, lambda_max against lam_max64)."""
+    phase_large(device, LARGE_DEEP, path=True, tag="phase 14")
     log("phase 14: the p = 3 exact-route arms")
     for name in ("256^3 n=2^22", "255x255x256 n=2^22"):
         (x, y), (_, m, lam) = CUBES[name][0](), CUBES[name]
@@ -2441,13 +2485,14 @@ def kernel_work(name: str, m, batch: int = 1, k_iters: int = 4, n_steps: int = 3
                 "dual_update_tiled_2d_shard": 16 + 20,
                 "gram_residual_tiled_2d_shard": 12 + 4,   # b, v, counts -> r0 (b given)
                 "gram_matvec_tiled_2d_shard": 8 + 4,
-                "rhs_tiled_2d_shard": 28 + 4}
+                "rhs_tiled_2d_shard": 28 + 4,
+                "xupdate_tridiag": 8 + 4}             # counts, b -> x
     if name == "admm_iters_2d_batched":               # counts and oty per fold, eigs shared
         return batch * 64 * n + 4 * n + halves, batch * k_iters * 2 * n_steps * transform
     if name == "dual_struct":                          # n_in lattices in, n_out out
         return 4 * n * (n_in + n_out), 0
     knot = 24 if fused and name == "gram_residual_tiled_2d_shard" else per_knot[name]
-    nbytes = knot * n + 4 * m[1] * SLAB_HALO_ROWS.get(name, 0)
+    nbytes = knot * n + 4 * m[-1] * SLAB_HALO_ROWS.get(name, 0)
     flops = 0
     if name == "xupdate_pcg_2d_packed":
         nbytes, flops = nbytes + halves, 2 * n_steps * transform
@@ -2932,8 +2977,8 @@ SHARD = ("dual_update_tiled_2d_shard", "gram_residual_tiled_2d_shard",
 # and 2, and the repaired routes' mvtv_one fits (label, m, data).
 SHARD_FIT1 = ((2048, 2048), 1 << 22)
 SHARD_FIT2 = ((1024, 1024), 1 << 20)
-# 3 lambdas (the 5-lambda grid's indices 0, 2, 4), not 5, since the C3 check
-# of phase 12 joined the default run.
+# 3 lambdas (the 5-lambda grid's indices 0, 2, 4), not 5, to keep the
+# default run inside its time.
 SHARD_FIT2_LAMBDAS = 3
 # The folds = 2 fit's lattice as a tiled_inputs workload for the slab check.
 SHARD_HALF = (lambda: bench_data(1 << 20), (1024, 1024), 0.05)
@@ -3376,6 +3421,434 @@ def phase_timing_shard(device):
     return times
 
 
+# ---------------------------------------------------------------------------
+# The p = 1 path: T1 (the exact tridiagonal x-update), the 1-D fused lasso
+# (m = N, mesh = sorted x) and user meshes
+# ---------------------------------------------------------------------------
+
+def fused_lasso_data(n: int, seed: int = 0):
+    """The 1-D fused lasso's data (the vignette's m = N, mesh = x case,
+    MultivarTV-intro.Rmd:111-118): sorted x ~ U(0, 1), y a step plus a sine
+    plus N(0, 0.3^2) noise."""
+    rng = np.random.RandomState(seed)
+    x = np.sort(rng.uniform(0, 1, n))
+    return x, (x > 0.5).astype(float) + 0.5 * np.sin(4 * np.pi * x) + rng.randn(n) * 0.3
+
+
+# T1 against the plain cyclic reduction on the card (phase 3): every size
+# at g = (rho s) s = 0.7 * 1.3^2, and g from 1e-4 to 50 (the ill-conditioned
+# end of the JAX package's docstring, tridiag.py:212-219) at the sizes of
+# the paths (316: the default mesh at n = 1e5; 2^20 and 10^6 + 1: the fused
+# lasso), a fifth of the knots empty.  The tolerance is the JAX package's
+# own for its cyclic reduction (tests/test_tridiag.py:33-44), of max|x|.
+T1_SIZES = (1, 2, 3, 64, 316, 1000, 2048, 4096, 4097, 70_000, 1 << 15, 1 << 20, 1_000_001)
+T1_G_SIZES = (316, 4097, 1 << 20, 1_000_001)
+T1_G = (1e-4, 1e-2, 1.0, 50.0)
+T1_TOL = 5e-6
+
+
+def tridiag_inputs(n: int, seed: int, device):
+    """Poisson(2) counts with a fifth of the knots emptied (at least one
+    count), and b ~ N(0, 1), float32 on the device."""
+    import torch
+    rng = np.random.RandomState(seed)
+    counts = rng.poisson(2, n).astype(np.float32)
+    counts[rng.uniform(size=n) < 0.2] = 0.0
+    counts[0] = max(counts[0], 1.0)
+    return (torch.as_tensor(counts, device=device),
+            torch.as_tensor(rng.randn(n).astype(np.float32), device=device))
+
+
+def banded64(counts, b, g) -> np.ndarray:
+    """The float64 solution of (diag(counts) + g T) x = b (scipy), a
+    reading beside the gate."""
+    import scipy.linalg
+    c = counts.double().cpu().numpy()
+    n = len(c)
+    ab = np.zeros((3, n))
+    ab[0, 1:] = ab[2, :-1] = -g
+    ab[1] = c + g * (2.0 - (np.arange(n) == 0) - (np.arange(n) == n - 1))
+    return scipy.linalg.solve_banded((1, 1), ab, b.double().cpu().numpy())
+
+
+def compare_tridiag(device, errs):
+    """T1 (csrc/tridiag.cu) against its plain version, the cyclic reduction
+    of solver/tridiag.py, on the same card inputs: max|x - plain| <= T1_TOL
+    max|plain|, and a second run bit for bit; the float64 solution's
+    distance to each printed beside."""
+    import torch
+    from multivartv_tpu_torch.ops import kernels as K
+    from multivartv_tpu_torch.solver import tridiag
+
+    s = 1.3
+    cases = [(n, 0.7 / (s * s)) for n in T1_SIZES] + [
+        (n, g / (s * s)) for n in T1_G_SIZES for g in T1_G]
+    worst = 0.0
+    for i, (n, rho_v) in enumerate(cases):
+        counts, b = tridiag_inputs(n, 100 + i, device)
+        rho = torch.tensor(rho_v, dtype=torch.float32, device=device)
+        x = K.xupdate_tridiag(counts, b, rho, s)
+        x2 = K.xupdate_tridiag(counts, b, rho, s)
+        ref = tridiag.xupdate_tridiag(counts, b, rho, s)
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        err = float((x - ref).abs().max()) / scale
+        worst = max(worst, err)
+        g = float(np.float32(np.float32(rho_v) * np.float32(s)) * np.float32(s))
+        x64 = banded64(counts, b, g)
+        s64 = float(np.abs(x64).max())
+        e_k = float(np.abs(x.double().cpu().numpy() - x64).max()) / s64
+        e_p = float(np.abs(ref.double().cpu().numpy() - x64).max()) / s64
+        check(err <= T1_TOL and bool(torch.isfinite(x).all()),
+              f"xupdate_tridiag n={n} g={g:.3g}: max|x - plain| / max|plain| {err:.3e} <= "
+              f"{T1_TOL:g} (float64 solution: kernel {e_k:.2e}, plain {e_p:.2e})")
+        check(torch.equal(x, x2), f"xupdate_tridiag n={n} g={g:.3g}: second run bit for bit")
+    errs["xupdate_tridiag"] = worst
+
+
+def t1_fold_spy():
+    """A context that records T1's launches in every admm_solve called from
+    mvtv's cross-validation (one per fold and lambda; the folds run one
+    after another on the "tridiag" route): a list of (launches, iterations)
+    per fold solve."""
+    import contextlib
+    from multivartv_tpu_torch.ops import kernels as K
+    from multivartv_tpu_torch.solver import admm, cv
+
+    @contextlib.contextmanager
+    def spy():
+        solve, cross = admm.admm_solve, cv.cross_validate
+        seen, inside = [], [False]
+
+        def solve_spy(*a, **k):
+            before = K.launch_counts["xupdate_tridiag"]
+            out = solve(*a, **k)
+            if inside[0]:
+                seen.append((K.launch_counts["xupdate_tridiag"] - before, int(out.counter)))
+            return out
+
+        def cross_spy(*a, **k):
+            inside[0] = True
+            try:
+                return cross(*a, **k)
+            finally:
+                inside[0] = False
+
+        admm.admm_solve, cv.cross_validate = solve_spy, cross_spy
+        try:
+            yield seen
+        finally:
+            admm.admm_solve, cv.cross_validate = solve, cross
+    return spy()
+
+
+def check_t1_folds(label, seen, folds: int, n_lambda: int) -> None:
+    """Every fold solve of a p = 1 cross-validation launched T1 once per
+    iteration."""
+    bad = [(k, it) for k, it in seen if k != it or k == 0]
+    check(len(seen) == folds * n_lambda and not bad,
+          f"{label}: T1 launched once per iteration in each of the {len(seen)} fold solves "
+          f"({folds} folds x {n_lambda} lambdas; {sum(k for k, _ in seen)} launches; "
+          f"mismatches {bad[:3]})")
+
+
+# The fused lasso on the card (phase 20): mvtv_one at N = 2^20 at lambda =
+# FUSED_FRAC lambda_max, against the exact route (the plain cyclic reduction
+# on the card), one-sided at LARGE_GAP; mvtv(folds=5, n_lambda=20) at N = 1e5
+# against the JAX package's fit of the same data (FUSED_JAX).
+FUSED_ONE = 1 << 20
+FUSED_FRAC = 1e-4
+FUSED_CV = (100_000, 5, 20)
+# The JAX package's mvtv on fused_lasso_data(100_000) with the port's fold
+# labels, run on the CPU (its cyclic-reduction x-update) by:
+#
+#   import jax.numpy as jnp, numpy as np
+#   from multivartv_tpu import api
+#   from multivartv_tpu.solver import cv
+#   x, y = fused_lasso_data(100_000)
+#   labels = np.random.RandomState(123).permutation(np.arange(100_000) % 5)
+#   cv.kfold_indices = lambda n, k, seed: jnp.asarray(labels, jnp.int32)
+#   model = api.mvtv(x, y, m=(100_000,), mesh=x[:, None], n_lambda=20, folds=5)
+#   # lambdas = model.lambdas, best = model.lambda_minmse_ind, cv_mses, per
+#   # lambda i the objective 0.5 ||y - fitted||^2 + lambda ||diff theta||_1 in
+#   # float64 of model.models[i] (at p = 1 D is the unscaled difference), and
+#   # its iterations; 736 s on the CPU.
+# Its lambda_max is float32 (1.66e-3 above the float64 value, which the
+# port computes: lam_max64 gives 124469.307), so the port's fit takes JAX's
+# grid (lambdas=) and is compared with it lambda for lambda.
+FUSED_JAX = dict(
+    lambda_max=124676.25, best=19,
+    lambdas=[124676.25, 76781.5859375, 47285.859375, 29120.888671875,
+             17934.033203125, 11044.6552734375, 6801.83251953125, 4188.89306640625,
+             2579.722900390625, 1588.718017578125, 978.4088745117188, 602.551513671875,
+             371.08013916015625, 228.52908325195312, 140.7392578125, 86.67399597167969,
+             53.37803649902344, 32.872764587402344, 20.244638442993164, 12.467623710632324],
+    cv_mses=[0.1079883724451065, 0.12626825273036957, 0.14575694501399994, 0.16494524478912354,
+             0.18303772807121277, 0.1997060626745224, 0.21488197147846222, 0.1843869388103485,
+             0.16137854754924774, 0.14091067016124725, 0.12327473610639572, 0.1113898903131485,
+             0.10285818576812744, 0.09713079780340195, 0.09386822581291199, 0.0919821634888649,
+             0.09101976454257965, 0.09056737273931503, 0.09036799520254135, 0.09028855711221695],
+    objectives=[511228.8832669231, 269761.07163162786, 145992.7348259565,
+                82372.2469730251, 49371.932605743394, 32076.335783919654,
+                23021.297280061546, 28285.740655743768, 20914.01004113535,
+                19131.533647927336, 14429.385319577059, 11816.314409273742,
+                8511.610763601735, 6943.202621253364, 6046.800067819497,
+                5540.277766403152, 5212.601305005279, 4974.402335899224,
+                4796.211950989773, 4666.913952606638],
+    iters=[3000, 3000, 3000, 3000, 3000, 3000, 1195, 711, 1629, 2708, 3000, 3000, 1932, 2033,
+           1695, 1321, 1122, 1052, 918, 858])
+# The 316^2 point-cloud fit (phase 20): bivariate_exp(1e5) on the default
+# mesh's lattice, every point moved by N(0, (0.1 h)^2), h the knot spacing,
+# so the mesh is no lattice; lambda as WORKLOADS' 316^2.
+CLOUD = (100_000, 316, 0.1, 10.0)
+
+
+def pointcloud_ties(x, pts, a, b) -> np.ndarray:
+    """Where two assignments a, b of the rows of x to rows of pts differ,
+    whether they differ at a float32 tie: the float64 squared distances to
+    the two rows within the float32 scan's error (|x|^2 - 2 x.p + |p|^2 in
+    float32: a few ulps of |x|^2 + |p|^2)."""
+    x64 = np.asarray(x, np.float32).astype(np.float64)
+    p64 = np.asarray(pts, np.float32).astype(np.float64)
+    da = ((x64 - p64[a]) ** 2).sum(1)
+    db = ((x64 - p64[b]) ** 2).sum(1)
+    scale = (x64 ** 2).sum(1) + np.maximum((p64[a] ** 2).sum(1), (p64[b] ** 2).sum(1))
+    return np.abs(da - db) <= 8 * np.finfo(np.float32).eps * scale
+
+
+def check_pointcloud(device) -> dict:
+    """mvtv_one on a 316^2 point cloud (the jittered lattice of CLOUD) under
+    the launch counters: the kd-tree's assignment on the host against the
+    device brute force the fit used (equal, except at float32 ties, each
+    checked to be one), fitted = theta at every sample's knot, and the fit
+    against the exact route.  Returns its launches."""
+    import torch
+    from multivartv_tpu_torch import mesh as mesh_lib
+    from multivartv_tpu_torch.ops import interp
+    from multivartv_tpu_torch.ops import kernels as K
+
+    n, side, jit, lam = CLOUD
+    x, y = bivariate_exp(n)
+    rng = np.random.RandomState(12)
+    knots = [np.linspace(x[:, j].min() - 1e-4, x[:, j].max() + 1e-4, side) for j in range(2)]
+    base = np.stack([np.tile(knots[0], side), np.repeat(knots[1], side)], 1)
+    h = (knots[0][-1] - knots[0][0]) / (side - 1)
+    cloud = base + rng.normal(0, jit * h, base.shape)
+    before = dict(K.launch_counts)
+    res = mvtv_one_mesh(x, y, (side, side), cloud, lam, device)
+    used = {k: K.launch_counts[k] - before[k] for k in K.KERNELS
+            if K.launch_counts[k] != before[k]}
+    spec = res["mesh_spec"]
+    log(f"  point cloud {side}^2 n={n} lam={lam:g}: {route_split(res)}, converged "
+        f"{res['diagnostics']['converged']}, {res['seconds']:.2f} s [{GPU_LINE}], "
+        f"launches {used}")
+    check(isinstance(spec, mesh_lib.PointCloudMeshSpec), "point cloud: a PointCloudMeshSpec")
+    t1 = time.perf_counter()
+    host = interp.flat_knot_indices(spec, x).cpu().numpy()
+    t_host = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    dev = interp.flat_knot_indices(spec, torch.as_tensor(x, dtype=torch.float32,
+                                                         device=device)).cpu().numpy()
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t1
+    diff = np.nonzero(host != dev)[0]
+
+    def ref_row(c):     # C-order flat index -> the cloud's row (axis 0 fastest)
+        return c // side + side * (c % side)
+
+    ties = pointcloud_ties(x[diff], cloud, ref_row(host[diff]), ref_row(dev[diff]))
+    log(f"  point cloud {side}^2: kd-tree (host, float64) {t_host:.2f} s, brute force (card, "
+        f"float32) {t_dev:.2f} s; {len(diff)} of {n} samples assigned differently, "
+        f"{int(ties.sum())} of them at float32 ties")
+    check(bool(ties.all()), f"point cloud {side}^2: the kd-tree's assignment equals the device "
+          f"brute force's except at float32 ties ({len(diff)} samples of {n}, each a tie)")
+    th = res["theta_lattice"].reshape(-1)
+    check(np.array_equal(res["fitted"], th[dev]),
+          f"point cloud {side}^2: fitted = theta at each sample's nearest point")
+    check(res["diagnostics"]["converged"] and used.get("admm_iters_2d", 0) > 0,
+          f"point cloud {side}^2: converged on the kernel route (admm_iters_2d "
+          f"{used.get('admm_iters_2d', 0)})")
+    ref = mvtv_one_mesh(x, y, (side, side), cloud, lam, device, use_kernels=False)
+    gap = (res["objective"] - ref["objective"]) / abs(ref["objective"])
+    check(gap <= 2e-5, f"point cloud {side}^2: objective (kernel - exact) / |exact| {gap:+.3e} "
+          "<= 2e-5")
+    return used
+
+
+def mvtv_one_mesh(x, y, m, mesh, lam, device, **cfg):
+    """fit() with a user's mesh=."""
+    import torch
+    from multivartv_tpu_torch import SolverConfig, mvtv_one
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = mvtv_one(x, y, m=m, mesh=mesh, lam=lam, solver_config=SolverConfig(**cfg),
+                   device=device)
+    torch.cuda.synchronize()
+    res["seconds"] = time.perf_counter() - t0
+    res["objective"] = objective64(res)
+    return res
+
+
+def phase_fused(device):
+    """Phase 20, the p = 1 main path under the launch counters: mvtv_one on
+    the fused lasso at N = 2^20 (mesh = sorted x: irregular float32 knots,
+    some coinciding and left empty) and mvtv(folds=5, n_lambda=20) at N =
+    1e5 on JAX's lambda grid, both through T1; and mvtv_one on a 316^2
+    point cloud.  Then, launches not counted: the 2^20 fit against the
+    exact route, both lambda_max against lam_max64, the 1e5 fit against
+    FUSED_JAX."""
+    from multivartv_tpu_torch.api import _setup
+    from multivartv_tpu_torch.config import DEFAULT_MESH, PathConfig, SolverConfig
+    from multivartv_tpu_torch.ops import kernels as K
+    from multivartv_tpu_torch.solver import path
+
+    log("phase 20: the 1-D fused lasso (m = N, mesh = x) and a point-cloud mesh, counters reset")
+    n1 = FUSED_ONE
+    x1, y1 = fused_lasso_data(n1)
+    mesh1 = x1[:, None]
+    _, _, spec1, _, _, ops1, pr1 = _setup(x1, y1, (n1,), mesh1, SolverConfig(), DEFAULT_MESH,
+                                          device)
+    lmax = float(path.lam_max(ops1, pr1, PathConfig()))
+    empty = int((pr1.counts == 0).sum())
+    k32 = x1.astype(np.float32)
+    runs = int(np.count_nonzero(k32[1:] == k32[:-1]))
+    check(not spec1.regular and empty == runs,
+          f"fused lasso N=2^20: irregular mesh, {empty} empty knots = {runs} float32 knots "
+          "equal to their left neighbour")
+    del ops1, pr1
+    lam1 = FUSED_FRAC * lmax
+    K.reset_launch_counts()
+    res = mvtv_one_mesh(x1, y1, (n1,), mesh1, lam1, device)
+    used1 = dict(K.launch_counts)
+    d = res["diagnostics"]
+    log(f"  fused lasso N=2^20 lam={lam1:.6g} ({FUSED_FRAC:g} lambda_max): {route_split(res)}, "
+        f"CG steps {d['cg_iterations']}, converged {d['converged']}, {res['seconds']:.2f} s "
+        f"[{GPU_LINE}], launches {{'xupdate_tridiag': {used1['xupdate_tridiag']}}}")
+    check(used1["xupdate_tridiag"] == d["iterations"] and d["cg_iterations"] == 0
+          and d["exact_iterations"] == 0,
+          f"fused lasso N=2^20: T1 launched once per iteration ({used1['xupdate_tridiag']} for "
+          f"{d['iterations']}), 0 CG steps")
+
+    n, folds, n_lambda = FUSED_CV
+    x, y = fused_lasso_data(n)
+    before = K.launch_counts["xupdate_tridiag"]
+    with t1_fold_spy() as seen:
+        model, cvres, fpath, seconds = mvtv_fit(x, y, (n,), device, n_lambda=n_lambda,
+                                                folds=folds, mesh=x[:, None],
+                                                lambdas=FUSED_JAX["lambdas"])
+    used_cv = K.launch_counts["xupdate_tridiag"] - before
+    describe_mvtv(f"fused lasso N={n}", model, cvres, fpath, seconds)
+    check_t1_folds(f"mvtv fused lasso N={n}", seen, folds, n_lambda)
+    its = int(cvres.fold_iters.sum()) + int(fpath.iters.sum())
+    check(used_cv >= its, f"mvtv fused lasso N={n}: T1 launched {used_cv} times, once in each "
+          f"of the {its} fold and path iterations (and the refit's, if any)")
+    used_cloud = check_pointcloud(device)
+    launches = dict(K.launch_counts)
+    log(f"  phase 20 launch counts: {launches}")
+    check(launches["xupdate_tridiag"] > 0,
+          f"the p = 1 path launched xupdate_tridiag ({launches['xupdate_tridiag']} times)")
+
+    log("phase 20: against the exact route (the plain cyclic reduction on the card), "
+        "lam_max64 and the JAX package's fit")
+    ref = mvtv_one_mesh(x1, y1, (n1,), mesh1, lam1, device, use_kernels=False)
+    gap = (res["objective"] - ref["objective"]) / abs(ref["objective"])
+    log(f"  fused lasso N=2^20: exact route {route_split(ref)}, {ref['seconds']:.2f} s; "
+        f"objective {res['objective']:.9e} vs {ref['objective']:.9e}")
+    check(gap <= LARGE_GAP, f"fused lasso N=2^20: objective (T1 - exact) / |exact| {gap:+.3e} "
+          f"<= {LARGE_GAP:g}")
+    check(bool(np.all(np.isfinite(res["theta_lattice"]))) and res["fitted"].shape == y1.shape,
+          "fused lasso N=2^20: theta finite, shapes")
+    check_lambda_max64("fused lasso N=2^20", lmax, x1, y1, spec1)
+    _, _, spec, _, _, ops, pr = _setup(x, y, (n,), x[:, None], SolverConfig(), DEFAULT_MESH,
+                                       device)
+    lmax_cv = float(path.lam_max(ops, pr, PathConfig()))
+    log(f"  fused lasso N={n}: lambda_max {lmax_cv:.9g}, the JAX package's (float32) "
+        f"{FUSED_JAX['lambda_max']:.9g} ({FUSED_JAX['lambda_max'] / lmax_cv - 1:+.2e})")
+    check_lambda_max64(f"fused lasso N={n}", lmax_cv, x, y, spec)
+    check_fused_jax(model, y)
+    return launches
+
+
+def check_fused_jax(model, y) -> None:
+    """The fused-lasso mvtv (on JAX's lambda grid) against FUSED_JAX: the
+    chosen index in JAX's tie set (MVTV_TIE), the objective at it one-sided
+    (MVTV_OBJECTIVE), the CV curve (MVTV_CURVE)."""
+    jax_fit = FUSED_JAX
+    n = len(y)
+    check(np.array_equal(model.lambdas, np.asarray(jax_fit["lambdas"], np.float32)),
+          f"mvtv fused lasso N={n}: JAX's lambda grid")
+    jc = np.asarray(jax_fit["cv_mses"])
+    best = model.lambda_minmse_ind
+    ties = np.nonzero(jc <= jc.min() * (1 + MVTV_TIE))[0].tolist()
+    check(best == jax_fit["best"] or best in ties,
+          f"mvtv fused lasso N={n}: chosen index {best} == JAX's {jax_fit['best']} or in {ties}")
+    rel = np.asarray(model.cv_mses, np.float64) / jc - 1
+    log(f"    CV curve / JAX's - 1: {[f'{v:+.1e}' for v in rel]}")
+    curve = float(np.max(np.abs(rel)))
+    check(curve <= MVTV_CURVE, f"mvtv fused lasso N={n}: CV curve vs JAX max rel {curve:.3e} <= "
+          f"{MVTV_CURVE:g}")
+    obj, jobj = model_objective(model), jax_fit["objectives"][best]
+    gap = obj / jobj - 1
+    check(gap <= MVTV_OBJECTIVE, f"mvtv fused lasso N={n}: objective at the chosen lambda "
+          f"{obj:.9e} vs JAX's {jobj:.9e} (rel {gap:+.3e} <= {MVTV_OBJECTIVE:g})")
+    paths = [model_objective(model, i) / jax_fit["objectives"][i] - 1
+             for i in range(len(jc))]
+    log(f"    full-path objective / JAX's - 1 per lambda: {[f'{v:+.1e}' for v in paths]}")
+    log(f"    iterations per lambda {[e['iters'] for e in model.models]} (JAX "
+        f"{jax_fit['iters']})")
+
+
+T1_TIMED = (316, 4096, 1 << 20)
+
+
+def phase_timing_fused(device):
+    """Phase 21: T1 at the default p = 1 mesh of n = 1e5 (316 knots), at
+    4,096 (its largest one-CTA system) and at 2^20 (the fused lasso) beside
+    its plain version and its bound (12 bytes a row), with its device time
+    and kernels per call; then the fused-lasso ADMM iteration at N = 2^20
+    (CUDA events, torch.profiler: ms per iteration, idle share).  Returns
+    {"xupdate_tridiag": (ms, plain_ms, (2^20,))}."""
+    import torch
+    from multivartv_tpu_torch.api import _setup
+    from multivartv_tpu_torch.config import DEFAULT_MESH, SolverConfig
+    from multivartv_tpu_torch.ops import kernels as K
+    from multivartv_tpu_torch.solver import admm, tridiag
+
+    log(f"phase 21: T1 and the fused-lasso iteration on {GPU_LINE} (CUDA events)")
+    times = {}
+    for n in T1_TIMED:
+        counts, b = tridiag_inputs(n, 7, device)
+        rho = torch.tensor(0.5, dtype=torch.float32, device=device)
+
+        def kern():
+            return K.xupdate_tridiag(counts, b, rho, 1.0)
+
+        def plain():
+            return tridiag.xupdate_tridiag(counts, b, rho, 1.0)
+
+        p1 = cuda_time_ms(plain, 5)
+        k_ms = time_call("xupdate_tridiag", f"n={n}", kern, (n,), n=50)
+        p2 = cuda_time_ms(plain, 5)
+        log(f"  xupdate_tridiag n={n}: plain {p1:.4f} / {p2:.4f} ms [{GPU_LINE}]")
+        times["xupdate_tridiag"] = (k_ms, min(p1, p2), (n,))
+    n1 = FUSED_ONE
+    x1, y1 = fused_lasso_data(n1)
+    cfg = SolverConfig()
+    _, _, _, _, _, ops, pr = _setup(x1, y1, (n1,), x1[:, None], cfg, DEFAULT_MESH, device)
+    lam = torch.tensor(1.0, dtype=torch.float32, device=device)
+    state0 = admm.initial_state(ops, pr, lam / 5)
+    n_it = 50
+
+    def run():
+        return admm.admm_fixed_iterations(ops, pr, lam, state0, cfg, n_it)
+
+    ms = cuda_time_ms(run, 2, warmup=1) / n_it
+    log(f"  fused lasso N=2^20 (tridiag route): admm_fixed_iterations {ms:.3f} ms per "
+        f"iteration = {1e3 / ms:.1f} iterations/s [{GPU_LINE}]")
+    profile_iterations("fused lasso N=2^20", run, n_it, ms)
+    return times
+
+
 SOURCES = {
     "dual_update_2d": ("multivartv_tpu_torch/csrc/dual.cu",
                        "multivartv_tpu/ops/pallas_kernels.py:262"),
@@ -3414,6 +3887,9 @@ SOURCES = {
     "rhs_tiled_2d_shard": ("multivartv_tpu_torch/csrc/rhs.cu",
                            "multivartv_tpu/ops/pallas_kernels.py:1581"),
     "dual_struct": ("multivartv_tpu_torch/csrc/probe.cu", "scripts/probe_r5_dualstruct.py:79"),
+    # T1 replaces no Pallas kernel: the JAX package's solve is XLA.
+    "xupdate_tridiag": ("multivartv_tpu_torch/csrc/tridiag.cu",
+                        "multivartv_tpu/solver/tridiag.py:208 (XLA, no Pallas kernel)"),
 }
 # The lattices (and batch) at which phase 7 times the whole-lattice kernels;
 # B1's row is its 1023^2 time (phase_timing_slice), where its launches are.
@@ -3434,9 +3910,9 @@ def phase_mvtv_default(device):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,12,13,15,16,17",
-                    help="comma-separated phases to run (default: 1-10, 12, 13, 15-17; 11, 14, "
-                    "18 and 19 only when listed)")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,12,13,15,16,17,20,21",
+                    help="comma-separated phases to run (default: 1-10, 12, 13, 15-17, 20, 21; "
+                    "11, 14, 18 and 19 only when listed)")
     phases = {int(v) for v in ap.parse_args(argv).phases.split(",")}
     phase_device()
     import torch
@@ -3465,6 +3941,9 @@ def main(argv=None) -> int:
     if 16 in phases:
         launches_shard = phase_sharded(device)
         launches = {k: launches.get(k, 0) + launches_shard[k] for k in launches_shard}
+    if 20 in phases:
+        launches_fused = phase_fused(device)
+        launches = {k: launches.get(k, 0) + launches_fused[k] for k in launches_fused}
     if 6 in phases:
         phase_predict(fits, model)
     if phases & {7, 10, 13}:
@@ -3484,6 +3963,9 @@ def main(argv=None) -> int:
     if 17 in phases:
         timed.update({k: (ms, plain, m, {})
                       for k, (ms, plain, m) in phase_timing_shard(device).items()})
+    if 21 in phases:
+        timed.update({k: (ms, plain, m, {})
+                      for k, (ms, plain, m) in phase_timing_fused(device).items()})
     if 8 in phases:
         phase_mvtv_default(device)
     if 11 in phases:

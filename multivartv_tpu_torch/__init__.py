@@ -13,13 +13,17 @@ parameters and no gradients, so ``nn.Module`` does not fit here.
 
 Importing the package imports torch and numpy, never jax.  The port covers
 the cross-validated ``mvtv`` (``MVTVModel``), ``mvtv_one`` and
-``predict_mvtv`` on 2-D and 3-D lattices, under every solver profile of
-``sibling_profile``; see ROADMAP.md for the rest.
+``predict_mvtv`` on 1-D (the exact tridiagonal x-update), 2-D, 3-D and
+higher lattices, under every solver profile of ``sibling_profile``, on the
+default mesh or a user's ``mesh=`` (a lattice, regular or not, or a point
+cloud; ``gen_mesh``, ``make_mesh_spec``); see ROADMAP.md for the rest.
 """
 
 from multivartv_tpu_torch.api import MVTVModel, mvtv, mvtv_one, predict_mvtv, resolve_device
 from multivartv_tpu_torch.config import (CVConfig, MeshConfig, PathConfig, SolverConfig,
                                          sibling_profile)
+from multivartv_tpu_torch.mesh import MeshSpec, gen_mesh, make_mesh_spec
 
 __all__ = ["mvtv", "MVTVModel", "mvtv_one", "predict_mvtv", "resolve_device", "SolverConfig",
-           "PathConfig", "CVConfig", "MeshConfig", "sibling_profile"]
+           "PathConfig", "CVConfig", "MeshConfig", "sibling_profile", "MeshSpec",
+           "make_mesh_spec", "gen_mesh"]

@@ -100,34 +100,56 @@ def _as_2d(data) -> np.ndarray:
     return data[:, None] if data.ndim == 1 else data
 
 
-def _resolve_mesh(data: np.ndarray, m, mesh_cfg: MeshConfig, device) -> MeshSpec:
-    """Regular lattice over the eps-padded data range, built on the host in
-    float64 and cast to float32 (create_mesh / create_deltas,
-    utils.cpp:234-263; MeshConfig.delta_mode)."""
+def _resolve_mesh(data: np.ndarray, m, mesh_cfg: MeshConfig, device, mesh=None):
+    """The fit's mesh.  Without mesh=: a regular lattice over the eps-padded
+    data range, built on the host in float64 and cast to float32
+    (create_mesh / create_deltas, utils.cpp:234-263; MeshConfig.delta_mode).
+    A user's mesh= is a lattice (regular or not) where
+    mesh.mesh_spec_from_points accepts it, else a point cloud whose deltas
+    come from the data ranges (gen_mesh's pass-through, solvers.cpp:233-244;
+    create_deltas)."""
     n, p = data.shape
     m = _default_m(n, p) if m is None else tuple(int(v) for v in np.ravel(m))
     if len(m) != p:
         raise ValueError(f"m has {len(m)} entries but data has {p} columns")
+    eps = mesh_cfg.eps
+
+    def cell(j, rng):
+        return rng / m[j] if mesh_cfg.delta_mode == "cpp" else rng / max(m[j] - 1, 1)
+
+    if mesh is not None:
+        try:
+            return mesh_lib.mesh_spec_from_points(mesh, m, device=device)
+        except ValueError:
+            deltas = [cell(j, data[:, j].max() - data[:, j].min() + 2 * eps) for j in range(p)]
+            return mesh_lib.PointCloudMeshSpec(
+                points=torch.as_tensor(np.asarray(mesh), dtype=torch.float32, device=device),
+                deltas=torch.as_tensor(deltas, dtype=torch.float32, device=device), m=m)
     knots, deltas = [], []
     for j in range(p):
-        lo, hi = data[:, j].min() - mesh_cfg.eps, data[:, j].max() + mesh_cfg.eps
+        lo, hi = data[:, j].min() - eps, data[:, j].max() + eps
         knots.append(torch.as_tensor(np.linspace(lo, hi, m[j]), dtype=torch.float32,
                                      device=device))
-        rng = hi - lo
-        deltas.append(rng / m[j] if mesh_cfg.delta_mode == "cpp" else rng / max(m[j] - 1, 1))
+        deltas.append(cell(j, hi - lo))
     return MeshSpec(knots=tuple(knots),
                     deltas=torch.as_tensor(deltas, dtype=torch.float32, device=device), m=m)
+
+
+def _mesh_points_np(spec) -> np.ndarray:
+    """The (ntheta, p) knot coordinates of a fit, reference order: the
+    user's points on a point cloud, else the lattice's."""
+    if isinstance(spec, mesh_lib.PointCloudMeshSpec):
+        return spec.points.cpu().numpy()
+    return mesh_lib.lattice_points(spec.knots, spec.m).cpu().numpy()
 
 
 def _setup(data, y, m, mesh, solver_config: SolverConfig, mesh_config: MeshConfig, device):
     """(data, y as float64 host arrays, mesh spec, data, y on the device,
     operators, problem): the binning and operator build of a fit."""
-    if mesh is not None:
-        raise NotImplementedError("an explicit mesh= is not ported yet (ROADMAP A2)")
     dev = resolve_device(device)
     data_np = _as_2d(data)
     y_np = np.asarray(y, np.float64).reshape(-1)
-    spec = _resolve_mesh(data_np, m, mesh_config, dev)
+    spec = _resolve_mesh(data_np, m, mesh_config, dev, mesh)
     data_t = torch.as_tensor(data_np, dtype=torch.float32, device=dev)
     y_t = torch.as_tensor(y_np, dtype=torch.float32, device=dev)
     ops = build_operators(spec.m, spec.deltas, solver_config, dev)
@@ -276,7 +298,7 @@ def _assemble_model(data_np, y_np, spec, final_path, lambda_grid, best_ind, best
     lambda_1se = float(lambdas_np[cands[-1]]) if cands.size else float(lambdas_np[best_ind])
     return MVTVModel(
         data=data_np, y=y_np, m=spec.m,
-        mesh=mesh_lib.lattice_points(spec.knots, spec.m).cpu().numpy(),
+        mesh=_mesh_points_np(spec),
         theta_hat=mesh_lib.flatten_ref_order(best_theta).cpu().numpy(),
         theta_lattice=best_theta.cpu().numpy(), fitted=fitted, residuals=y_np - fitted,
         lambdas=lambdas_np, models=models, lambda_minmse_ind=best_ind,
@@ -303,7 +325,7 @@ def mvtv_one(data, y, m=None, mesh=None, lam: Optional[float] = None,
     state = admm.admm_solve(ops, problem, lam_t, state, solver_config)
     fitted = interp_ops.gather_fitted(state.theta, problem.flat_idx)
     return {
-        "mesh": mesh_lib.lattice_points(spec.knots, spec.m).cpu().numpy(),
+        "mesh": _mesh_points_np(spec),
         "mesh_spec": spec,
         "theta_hat": mesh_lib.flatten_ref_order(state.theta).cpu().numpy(),
         "theta_lattice": state.theta.cpu().numpy(),

@@ -2,7 +2,8 @@
 
 Counterpart of ``multivartv_tpu/ops/interp.py``: with one nearest knot per
 sample, O theta is a gather, O'v a scatter-add onto the lattice and O'O =
-diag(counts).  On CUDA ``index_add_`` adds with atomics, so the float
+diag(counts).  On a point-cloud mesh the nearest knot is the nearest row
+of the user's points (``pointcloud_flat_c_indices``).  On CUDA ``index_add_`` adds with atomics, so the float
 sums of O'y come out in a run-dependent order: counts stay exact
 (integers), O'y may differ in its last bits from run to run.
 """
@@ -15,14 +16,37 @@ import numpy as np
 import torch
 
 from multivartv_tpu_torch import mesh as mesh_lib
-from multivartv_tpu_torch.mesh import MeshSpec
+from multivartv_tpu_torch.mesh import PointCloudMeshSpec
 from multivartv_tpu_torch.ops import dct as dct_ops
 
 
-def flat_knot_indices(spec: MeshSpec, data: torch.Tensor) -> torch.Tensor:
-    """Per-sample C-order flat index of the nearest knot, shape (n,)."""
+def flat_knot_indices(spec, data) -> torch.Tensor:
+    """Per-sample C-order flat index of the nearest knot, shape (n,): on a
+    lattice (MeshSpec) by nearest_knot_multi_index, on a point cloud by
+    pointcloud_flat_c_indices."""
+    if isinstance(spec, PointCloudMeshSpec):
+        return pointcloud_flat_c_indices(spec, data)
     multi = mesh_lib.nearest_knot_multi_index(spec, data)
     return mesh_lib.flat_index_c(multi, spec.m)
+
+
+def pointcloud_flat_c_indices(spec: PointCloudMeshSpec, data) -> torch.Tensor:
+    """The nearest mesh row of every sample of a point-cloud mesh, as a
+    C-order flat lattice index (int64, on the points' device).  Host numpy
+    data goes through the kd-tree (native/loader.py, float64); a tensor
+    through nearest_pointcloud_indices on its device (float32)."""
+    if isinstance(data, np.ndarray):
+        from multivartv_tpu_torch.native import loader
+        idx_ref = loader.nearest_kdtree(data, spec.points.cpu().numpy())
+        multi = torch.as_tensor(mesh_lib.ref_flat_to_multi(idx_ref, spec.m),
+                                device=spec.points.device)
+        return mesh_lib.flat_index_c(multi, spec.m)
+    rem = nearest_pointcloud_indices(data, spec.points)
+    cols = []
+    for mj in spec.m:
+        cols.append(rem % mj)
+        rem = rem // mj
+    return mesh_lib.flat_index_c(torch.stack(cols, dim=1), spec.m)
 
 
 def gather_fitted(theta: torch.Tensor, flat_idx: torch.Tensor) -> torch.Tensor:

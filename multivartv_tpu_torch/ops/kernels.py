@@ -26,6 +26,7 @@ the three row-slab kernels of the sharded route:
   dual_update_tiled_2d_shard    _tiled_dual_kernel, sharded (B8s)            dual.cu
   gram_residual_tiled_2d_shard  _tiled_gram_res_kernel, sharded (B9s)        tiled.cu
   rhs_tiled_2d_shard            _tiled_rhs_kernel, sharded (B11s)            rhs.cu
+  xupdate_tridiag               none: XLA in JAX, solver/tridiag.py:208 (T1) tridiag.cu
   ============================  ===========================================  =======================
 
 B4 is the B = 1 case of B5's launcher: one chain of stage kernels, each
@@ -41,6 +42,10 @@ is one launch, and B11 is B2's kernel, which takes any m0, m1.  B11, B14
 and B11s have no ADMM caller, as in the JAX package.
 ``gram_matvec_tiled_2d_shard`` is B9s's kernel in its matvec mode, the
 sharded PCG's matvec (the JAX package leaves it to XLA).
+``xupdate_tridiag`` (T1) is the exact p = 1 x-update, which the JAX package
+runs as one fused XLA program: PCR in one CTA up to 4,096 knots, a
+partition solve above (csrc/tridiag.cu); its plain version is the cyclic
+reduction of solver/tridiag.py.
 ``stream_copy`` and ``dual_struct`` (csrc/probe.cu) are measurement probes
 that no path launches.
 
@@ -70,6 +75,7 @@ import torch
 from multivartv_tpu_torch.ops import _build
 from multivartv_tpu_torch.ops import dct as dct_ops
 from multivartv_tpu_torch.ops import diff as diff_ops
+from multivartv_tpu_torch.solver import tridiag
 
 # Slots of the kernels' scalar buffer (csrc/common.cuh).
 S_LAM, S_RHO, S_USCALE, S_CBAR, S_KAPPA, S_STATS, S_CG = 0, 1, 2, 3, 4, 5, 11
@@ -80,7 +86,8 @@ KERNELS = ("dual_update_2d", "rhs_2d", "xupdate_pcg_2d_packed", "admm_iters_2d",
            "gram_residual_tiled_2d", "gram_matvec_tiled_2d", "rhs_tiled_2d",
            "dual_update_tiled_3d", "gram_residual_tiled_3d", "rhs_tiled_3d",
            "dual_update_tiled_2d_shard", "gram_residual_tiled_2d_shard",
-           "gram_matvec_tiled_2d_shard", "rhs_tiled_2d_shard", "dual_struct")
+           "gram_matvec_tiled_2d_shard", "rhs_tiled_2d_shard", "dual_struct",
+           "xupdate_tridiag")
 # The p = 3 block set in fd_binaries(3) order (pallas_kernels.py:1930).
 BINARIES3 = ((1, 1, 1), (0, 0, 1), (0, 1, 0), (0, 1, 1), (1, 0, 0), (1, 0, 1), (1, 1, 0))
 launch_counts = {name: 0 for name in KERNELS}
@@ -520,6 +527,12 @@ def rhs_tiled_3d_reference(alpha, u, oty, rho, u_scale, scales):
     return oty + rho * diff_ops.apply_Dt(au, BINARIES3, scales)
 
 
+def xupdate_tridiag_reference(counts, b, rho, scale):
+    """x with (diag(counts) + (rho s) s T) x = b: the cyclic reduction of
+    solver/tridiag.py."""
+    return tridiag.xupdate_tridiag(counts, b, rho, scale)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -550,9 +563,12 @@ _ARGTYPES = {
     "mvtv_gram_tiled_2d_shard": [_I] + [_P] * 10 + [_F] * 3 + [_I, _I, _P, _I, _I, _P],
     "mvtv_rhs_tiled_2d_shard": [_P] * 13 + [_F] * 3 + [_I, _P, _I, _I, _P],
     "mvtv_dual_struct": [_P, _I, _P, _I, _I, _P, _I, _I, _P],
+    "mvtv_xupdate_tridiag": [_P, _P, _P, _F, _P, _P, _I, _P],
+    "mvtv_xupdate_tridiag_work": [_I],
 }
 # The work-size queries that return a count of floats as a long long.
-_LONG_RESULTS = ("mvtv_xupdate_pcg_2d_packed_work", "mvtv_admm_iters_2d_batched_work")
+_LONG_RESULTS = ("mvtv_xupdate_pcg_2d_packed_work", "mvtv_admm_iters_2d_batched_work",
+                 "mvtv_xupdate_tridiag_work")
 _configured = False
 
 
@@ -1356,3 +1372,30 @@ def dual_struct(ins: Sequence[torch.Tensor], n_out: int, prox: bool):
               "dual_struct")
     launch_counts["dual_struct"] += 1
     return outs, (torch.sum(partials) if prox else None)
+
+
+def xupdate_tridiag(counts: torch.Tensor, b: torch.Tensor, rho, scale: float) -> torch.Tensor:
+    """T1, the exact p = 1 x-update: x with (diag(counts) + (rho s) s T) x =
+    b, T the Neumann second difference (solver/tridiag.py).  counts and b
+    are contiguous float32 (n,); rho a float32 scalar tensor on their
+    device, read by the kernel through its pointer.  On the card one call
+    (one launch up to 4,096 knots; above, 2 L + 1 for L partition levels,
+    each 16 times smaller: 5 at 2^20) and two allocations, x and the
+    levels' scratch."""
+    for v in (counts, b):
+        if v.dtype != torch.float32 or v.ndim != 1 or v.shape != b.shape or not v.is_contiguous():
+            raise ValueError(f"expected contiguous float32 counts and b of one shape (n,), got "
+                             f"{v.dtype} {tuple(v.shape)}")
+    n = int(b.shape[0])
+    if _route(counts, b) == "cpu":
+        return xupdate_tridiag_reference(counts, b, rho, scale)
+    dev = b.device
+    lib = _lib()
+    x = torch.empty_like(b)
+    work = torch.empty(max(int(lib.mvtv_xupdate_tridiag_work(n)), 1), dtype=torch.float32,
+                       device=dev)
+    err = lib.mvtv_xupdate_tridiag(counts.data_ptr(), b.data_ptr(), _scalar_ptr(rho, dev),
+                                   float(scale), x.data_ptr(), work.data_ptr(), n, _stream(dev))
+    _raise_on(err, "xupdate_tridiag")
+    launch_counts["xupdate_tridiag"] += 1
+    return x

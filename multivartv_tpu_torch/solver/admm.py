@@ -65,8 +65,10 @@ tests walk the card's route; only each kernel wrapper looks at the device):
     package's plain fallthrough (xupdate.py:502-527).  With
     ``bf16_residual_escape`` a stalled bf16 solve (Boyd, dct_pcg) finishes
     on the exact route within the same cap, where the dense DCT matrices
-    exist (up to 2048 per axis).  p = 1 runs the exact route (the JAX
-    package's exact tridiagonal solve is ROADMAP A9).
+    exist (up to 2048 per axis).  p = 1 with dct_pcg runs the "tridiag"
+    route: a plain rhs and dual stage around the exact tridiagonal
+    x-update ``xupdate_tridiag`` (T1), no escape (the x-update is exact
+    float32, as the JAX package's cyclic reduction).
   * exact route (``use_kernels=False``): per-iteration plain PyTorch with
     the tolerance-driven float32 PCG (or the configured x-solver), the
     explicit comparison arm.
@@ -88,11 +90,12 @@ the exact route, and under a stop rule other than Boyd or an x-solver other
 than dct_pcg (which the JAX package's B5 gate declines too), each element
 runs ``admm_solve`` on the exact route in turn, escape off.  On the other
 kernel routes (tiled above 2^20 knots, tiled3, spectral2, spectral3,
-spectralN) each element runs ``admm_solve`` in turn on that
-single-problem route, escape off: jax.vmap(admm_solve(batched=True))
-element by element; the fold axis through B8/B9 and B12/B13 is a speed
-item (ROADMAP A13).  Operators cut to row slabs raise NotImplementedError
-(mvtv_sharded runs its folds one after another).
+spectralN, and at p = 1 tridiag under any stop rule) each element runs
+``admm_solve`` in turn on that single-problem route, escape off:
+jax.vmap(admm_solve(batched=True)) element by element; the fold axis
+through B8/B9, B12/B13 and T1 is a speed item (ROADMAP A13).  Operators
+cut to row slabs raise NotImplementedError (mvtv_sharded runs its folds
+one after another).
 
 The JAX while loops are Python loops that read one host value per trip
 (the loop predicate); nothing inside a chunk reads the device.  The
@@ -115,6 +118,7 @@ from multivartv_tpu_torch.ops import diff as diff_ops
 from multivartv_tpu_torch.ops import kernels
 from multivartv_tpu_torch.ops.prox import soft_threshold_blocks
 from multivartv_tpu_torch.solver import pad as pad_lib
+from multivartv_tpu_torch.solver import tridiag
 from multivartv_tpu_torch.solver.problem import Operators, Problem, problem_at
 from multivartv_tpu_torch.solver.xupdate import (counts_to_layout, n_fixed_steps, solve_x,
                                                  whole_xupdate)
@@ -267,10 +271,10 @@ def pad_single_applies(ops: Operators, cfg: SolverConfig) -> bool:
 
 def solve_route(ops: Operators, cfg: SolverConfig) -> Optional[str]:
     """The route of a solve on the lattice of ops (after padding): None
-    (the exact-f32 route, and every p = 1 solve), "whole", "tiled", "spectral2", "tiled3",
-    "spectral3" or "spectralN" (lattice_route), or "shard" for operators
-    cut to row slabs (a sharded fit, whatever use_kernels says: the row
-    slabs have no other route)."""
+    (the exact-f32 route), "tridiag" (p = 1 under dct_pcg: T1), "whole",
+    "tiled", "spectral2", "tiled3", "spectral3" or "spectralN"
+    (lattice_route), or "shard" for operators cut to row slabs (a sharded
+    fit, whatever use_kernels says: the row slabs have no other route)."""
     if ops.slab is not None:
         from multivartv_tpu_torch.parallel import tiled_shard
         key = cfg.tiled_shard_key
@@ -283,8 +287,8 @@ def solve_route(ops: Operators, cfg: SolverConfig) -> Optional[str]:
         return "shard"
     if not cfg.use_kernels:
         return None
-    if len(ops.m) == 1:     # no kernel route until the tridiagonal solve (ROADMAP A9)
-        return None
+    if len(ops.m) == 1:
+        return "tridiag" if tridiag.tridiag_applies(ops, cfg) else None
     m = pad_lib.pad_target_m(ops.m) if pad_single_applies(ops, cfg) else ops.m
     return lattice_route(m, _full_set(ops))
 
@@ -391,7 +395,7 @@ def make_admm_iteration(ops: Operators, problem: Problem, lam: torch.Tensor,
                 au = tuple(a + s.u_scale * w for a, w in zip(s.alpha, s.u))
                 b = problem.oty + s.rho * ops.apply_Dt(au)
             theta, cg_it = solve_x(ops, problem.counts, cbar, b, s.rho, s.theta, cfg,
-                                   use_kernels=route == "whole",
+                                   use_kernels=route in ("whole", "tridiag"),
                                    spectral=route in PLAIN_SPECTRAL_ROUTES,
                                    counts_blocked=counts_blocked, one_kernel=one_kernel)
         if kernel_stats:
@@ -570,8 +574,8 @@ def admm_solve(ops: Operators, problem: Problem, lam: torch.Tensor, state: ADMMS
     def tail_cond(s):
         return _not_converged(s, cfg.max_iters)
 
-    escape = (route not in (None, "shard") and cfg.bf16_residual_escape and _boyd_dct(cfg)
-              and ops.dct_mats is not None)
+    escape = (route not in (None, "shard", "tridiag") and cfg.bf16_residual_escape
+              and _boyd_dct(cfg) and ops.dct_mats is not None)
     if escape:
         f32_cfg = dataclasses.replace(cfg, use_kernels=False, chunk_iters=1)
         tail_body = make_admm_iteration(ops, problem, lam, f32_cfg, stop_ntheta=s_nt,
@@ -747,8 +751,11 @@ def _element_config(ops: Operators, cfg: SolverConfig) -> SolverConfig:
     ("tiled": B8-B10 under the spectral-correction CG; "tiled3": B12/B13;
     "spectral2", "spectral3", "spectralN": no kernel); every other config
     runs the exact route (on a TPU JAX's vmapped solve still takes the bf16
-    spectral CG on even lattices there, the port the float32 PCG)."""
-    keep = _boyd_dct(cfg) and solve_route(ops, cfg) in SPECTRAL_ROUTES
+    spectral CG on even lattices there, the port the float32 PCG).  At
+    p = 1 an element keeps the "tridiag" route (T1, one fold after
+    another; one launch per fold batch is ROADMAP A13)."""
+    route = solve_route(ops, cfg)
+    keep = route == "tridiag" or (_boyd_dct(cfg) and route in SPECTRAL_ROUTES)
     return dataclasses.replace(cfg, bf16_residual_escape=False,
                                use_kernels=cfg.use_kernels and keep)
 

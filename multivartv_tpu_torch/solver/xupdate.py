@@ -3,7 +3,10 @@
 Counterpart of ``multivartv_tpu/solver/xupdate.py``.  ``solve_x`` takes the
 JAX package's branches in its order (xupdate.py:378-527): ``dct_direct``
 (the exact DCT solve of (mean(counts) I + rho D'D), ``ops/dct.py::
-shifted_solve``) on every route, then for ``dct_pcg`` by route:
+shifted_solve``) on every route; then at p = 1 with dct_pcg the exact
+tridiagonal solve (solver/tridiag.py, no CG step): ``xupdate_tridiag``
+(T1) on the "tridiag" kernel route, the plain cyclic reduction on the
+exact route; then for ``dct_pcg`` by route:
 
   * the whole-lattice route (``use_kernels``, 2-D up to 2^20 knots), where
     the dense DCT matrices exist (up to 2048 per axis): n fixed PCG steps
@@ -64,6 +67,7 @@ import torch
 from multivartv_tpu_torch.config import SolverConfig
 from multivartv_tpu_torch.ops import dct as dct_ops
 from multivartv_tpu_torch.ops import kernels
+from multivartv_tpu_torch.solver import tridiag
 from multivartv_tpu_torch.solver.cg import _dots, _poison_if_nonfinite, pcg, pcg_fixed, pcg_fused
 from multivartv_tpu_torch.solver.problem import Operators
 
@@ -375,9 +379,10 @@ def solve_x(ops: Operators, counts: torch.Tensor, cbar: torch.Tensor,
             rhs_parts=None, spectral: bool = False,
             one_kernel: bool = True) -> Tuple[torch.Tensor, int]:
     """Returns (theta, CG steps taken) (see module doc).  use_kernels: the
-    whole-lattice route; one_kernel: its one-kernel gate passes; tiled: the
-    large-lattice and shard routes, where rhs_parts = (oty, dta, u_scale,
-    dtu) lets the residual kernel form b itself (b may then be None);
+    whole-lattice route, or at p = 1 the "tridiag" route; one_kernel: its
+    one-kernel gate passes; tiled: the large-lattice and shard routes, where
+    rhs_parts = (oty, dta, u_scale, dtu) lets the residual kernel form b
+    itself (b may then be None);
     spectral: the no-kernel spectral routes (b given); counts_blocked:
     counts in the spectral layout, converted once per solve by the caller.
     Operators cut to row slabs (ops.slab) take the plain PCG on the slabs."""
@@ -388,11 +393,16 @@ def solve_x(ops: Operators, counts: torch.Tensor, cbar: torch.Tensor,
     if b is None:
         oty, dta, u_scale, dtu = rhs_parts
         b = oty + rho * (dta + u_scale * dtu)
-    kind = whole_xupdate(ops, cfg, one_kernel) if use_kernels else None
     if cfg.x_solver == "dct_direct":
         if ops.slab is not None:
             return _sharded_dct_solve(ops, b, cbar + rho * ops.gram_eigs), 0
         return dct_ops.shifted_solve(b, cbar, rho, ops.gram_eigs, ops.dct_mats), 0
+    if tridiag.tridiag_applies(ops, cfg):
+        # p = 1: the system is tridiagonal, solved exactly by cyclic
+        # reduction, no CG step (JAX xupdate.py:382-390).
+        solve = kernels.xupdate_tridiag if use_kernels else tridiag.xupdate_tridiag
+        return solve(counts, b, rho, ops.scales[0]), 0
+    kind = whole_xupdate(ops, cfg, one_kernel) if use_kernels else None
     if kind in ("packed", "dense"):
         n_steps = n_fixed_steps(cfg)
         if kind == "packed":

@@ -178,8 +178,9 @@ def test_kernel_route_gates():
     assert admm.kernel_route(build_operators((16, 32), DELTAS, cfg, "cpu"), cfg)
     assert not admm.kernel_route(build_operators((16, 32), DELTAS, cfg, "cpu"),
                                  SolverConfig(use_kernels=False))
-    # p = 1 runs the exact route until the tridiagonal solve is ported (ROADMAP A9)
-    assert not admm.kernel_route(build_operators((16,), [0.5], cfg, "cpu"), cfg)
+    # p = 1 runs the "tridiag" route: T1, the exact cyclic-reduction x-update
+    assert admm.kernel_route(build_operators((16,), [0.5], cfg, "cpu"), cfg)
+    assert admm.solve_route(build_operators((16,), [0.5], cfg, "cpu"), cfg) == "tridiag"
     # p = 3 takes the kernel route (tests/test_torch_tiled3d.py), except a
     # lattice that pads more than 4x, which the JAX package solves exactly.
     assert admm.kernel_route(build_operators((4, 4, 4), [0.5, 0.5, 0.5], cfg, "cpu"), cfg)

@@ -147,25 +147,31 @@ def univariate(n, seed=1):
 
 @pytest.mark.parametrize("column", [False, True], ids=["x(n,)", "x(n,1)"])
 def test_mvtv_p1_default_config_matches_jax(column, monkeypatch):
-    """p = 1 under the default config runs the exact route (ROADMAP C5: it
-    raised; the JAX package's exact tridiagonal solve is A9), with JAX's
-    fold labels: the same chosen index, the CV curve at rtol 1e-4, on x of
-    shape (n,) and (n, 1)."""
+    """p = 1 under the default config runs the "tridiag" route (T1's
+    wrapper, the exact cyclic reduction, on every x-update of the folds and
+    the path), with JAX's fold labels: the same chosen index, the CV curve
+    at rtol 1e-4, on x of shape (n,) and (n, 1)."""
+    from multivartv_tpu_torch.ops import kernels as K
     n = 400
     x, y = univariate(n)
     x = x[:, None] if column else x
     labels = torch.as_tensor(np.array(jcv.kfold_indices(n, 2, 123)), dtype=torch.int64)
     monkeypatch.setattr(cv, "kfold_indices", lambda n_, k, seed: labels)
+    calls = []
+    plain = K.xupdate_tridiag_reference
+    monkeypatch.setattr(K, "xupdate_tridiag_reference", lambda *a: calls.append(1) or plain(*a))
     jm = japi.mvtv(x, y, n_lambda=4, folds=2)
     pm = mt.mvtv(x, y, n_lambda=4, folds=2, device="cpu")
+    assert calls
     assert pm.lambda_minmse_ind == jm.lambda_minmse_ind
     np.testing.assert_allclose(pm.cv_mses, np.asarray(jm.cv_mses), rtol=1e-4)
     assert pm.theta_lattice.shape == tuple(np.asarray(jm.theta_lattice).shape)
 
 
 def test_mvtv_one_p1_default_config_matches_jax():
-    """mvtv_one on one column under the default config (the exact route):
-    0.5 ||y - fitted||^2 + lambda ||D theta||_1 within 2e-5 of JAX's."""
+    """mvtv_one on one column under the default config (the "tridiag"
+    route, no CG step): 0.5 ||y - fitted||^2 + lambda ||D theta||_1 within
+    2e-5 of JAX's."""
     x, y = univariate(400, seed=5)
 
     def objective(res):
@@ -175,7 +181,8 @@ def test_mvtv_one_p1_default_config_matches_jax():
 
     jres = japi.mvtv_one(x, y, lam=1.0)
     pres = mt.mvtv_one(x, y, lam=1.0, device="cpu")
-    assert pres["diagnostics"]["converged"]
+    assert pres["diagnostics"]["converged"] and pres["diagnostics"]["cg_iterations"] == 0
+    assert pres["diagnostics"]["exact_iterations"] == 0
     assert abs(objective(pres) - objective(jres)) <= 2e-5 * abs(objective(jres))
 
 
@@ -185,5 +192,6 @@ def test_mvtv_cuda_default_raises_without_cuda(data):
     x, y, _ = data
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mt.mvtv(x, y, m=(8, 8), n_lambda=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        mt.mvtv(x, y, mesh=np.zeros((4, 2)), device="cpu")
+    # a user's mesh= goes through the same guard
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mt.mvtv(x, y, m=(2, 2), mesh=np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0], [1.0, 1.0]]))
