@@ -44,15 +44,17 @@ exact-f32 route.  Phase 3 also holds B6 at 511 x 2047 and B12 and B13 at
 at the C3 folds' 256 x 256 x 64, and B1 and B7 at 1023^2 and 511 x 2047
 (B7 also at 1024^2, its row march) with a second run bit for bit, and T1
 (the exact p = 1 x-update, csrc/tridiag.cu) against the plain cyclic
-reduction from 1 to 10^6 + 1 knots and g = rho s^2 from 1e-4 to 50, with a
-second run bit for bit.  Phase 20 drives the p = 1 path and user meshes:
-mvtv_one on the 1-D fused lasso (m = N = 2^20, mesh = sorted x, float32
-knots that coincide left empty) against the exact route and its
-lambda_max against a float64 recomputation, mvtv(folds=5, n_lambda=20) on
+reduction from 1 to 4,194,305 knots (above N_res, the segment solve's
+largest size, the multi-level route) and g = rho s^2 from 1e-4 to 50, with
+a second run bit for bit and, at 2^20, the float64 solution's distance.
+Phase 20 drives the p = 1 path and user meshes: mvtv_one on the 1-D fused
+lasso (m = N = 2^20, mesh = sorted x, float32 knots that coincide left
+empty) against the exact route and its lambda_max against a float64
+recomputation, mvtv(folds=5, n_lambda=20) on
 the fused lasso at N = 1e5 against the JAX package's fit (FUSED_JAX), and
 mvtv_one on a 316^2 point cloud, the kd-tree's assignment against the
-device brute force's; phase 21 times T1 (316, 4096 and 2^20 knots) and the
-fused-lasso iteration.
+device brute force's; phase 21 times T1 (316, 4096, 1e5 and 2^20 knots)
+and the fused-lasso iteration.
 It shows through the launch counters that the paths ran every kernel,
 measures the device-memory ceiling with a streaming-copy probe, times each
 kernel beside its plain version and its bound (B3-B5 also with their
@@ -86,8 +88,9 @@ route's tie set) at tol = 1e-4 and again at 1e-5 (the witness for its
 tolerances; about 18 minutes);
 phase 19, run only when listed, prints digests of the kernels' outputs on
 seeded inputs and times B1, B2, B4, B5, B7, B8, B9, B9s and its matvec,
-B10, B11s and B13 at their launch sizes with nothing else (copied into an older
-checkout's root, it times that tree's kernels: an A/B in one call).  Each
+B10, B11s, B13 and T1 at their launch sizes with nothing else (copied into
+an older checkout's root, it times that tree's kernels: an A/B in one
+call).  Each
 phase header carries the seconds since the start.
 
     python3 chip_smoke.py --phases 1,2,3      # build and kernel checks only
@@ -2778,11 +2781,11 @@ def phase_launch_sizes(device):
     (carries) on the 2048^2 one-rank slab and on one of SHARD_SLABS slabs,
     B9s (b given and fused) on the 2048^2 one-rank slab, B9 (fused) and B10
     at 2048^2 and 192 x 8192, B9s's matvec mode on the one-rank 1024^2
-    slab, B11s on a 512-row slab of 2048^2 and B13 (fused) at 256^3 and 256
-    x 256 x 64.  It calls only the wrappers' Python entry points, whose
-    arguments stay fixed, so the same file, copied into an older checkout's
-    root, times that tree's kernels in the same call (parent, change,
-    change, parent)."""
+    slab, B11s on a 512-row slab of 2048^2, B13 (fused) at 256^3 and 256
+    x 256 x 64 and T1 at T1_LAUNCH.  It calls only the wrappers' Python
+    entry points, whose arguments stay fixed, so the same file, copied into
+    an older checkout's root, times that tree's kernels in the same call
+    (parent, change, change, parent)."""
     import torch
     from multivartv_tpu_torch.ops import kernels as K
     from multivartv_tpu_torch.solver import admm
@@ -2894,6 +2897,25 @@ def phase_launch_sizes(device):
                                                    I["ops"].scales, rhs_parts=parts), I["m"])
         del I, s, pr, parts
         torch.cuda.empty_cache()
+    t1_launch_sizes(device)
+
+
+# T1 at its launch sizes in phase 19: the default p = 1 mesh at n = 1e5, the
+# fused lasso's mvtv (N = 1e5) and mvtv_one (N = 2^20).
+T1_LAUNCH = (316, 100_000, 1 << 20)
+
+
+def t1_launch_sizes(device):
+    """T1 at T1_LAUNCH with time_call's four numbers, and the digest of its
+    output on seeded inputs (the same from run to run of one tree)."""
+    import torch
+    from multivartv_tpu_torch.ops import kernels as K
+    for n in T1_LAUNCH:
+        counts, b = tridiag_inputs(n, 7, device)
+        rho = torch.tensor(0.5, dtype=torch.float32, device=device)
+        log(f"  xupdate_tridiag n={n}: digest {digest(K.xupdate_tridiag(counts, b, rho, 1.0))}")
+        time_call("xupdate_tridiag", f"n={n}", lambda: K.xupdate_tridiag(counts, b, rho, 1.0),
+                  (n,), n=50)
 
 
 # The LARGE lattices phase 10 times: the sizes of the tiled kernels' first
@@ -3439,12 +3461,18 @@ def fused_lasso_data(n: int, seed: int = 0):
 # at g = (rho s) s = 0.7 * 1.3^2, and g from 1e-4 to 50 (the ill-conditioned
 # end of the JAX package's docstring, tridiag.py:212-219) at the sizes of
 # the paths (316: the default mesh at n = 1e5; 2^20 and 10^6 + 1: the fused
-# lasso), a fifth of the knots empty.  The tolerance is the JAX package's
-# own for its cyclic reduction (tests/test_tridiag.py:33-44), of max|x|.
-T1_SIZES = (1, 2, 3, 64, 316, 1000, 2048, 4096, 4097, 70_000, 1 << 15, 1 << 20, 1_000_001)
-T1_G_SIZES = (316, 4097, 1 << 20, 1_000_001)
+# lasso; 1e5: the fused lasso's mvtv; 4,194,305: above N_res, the
+# multi-level route), a fifth of the knots empty.  The tolerance is the JAX
+# package's own for its cyclic reduction (tests/test_tridiag.py:33-44), of
+# max|x|.  At 2^20 (g = 0.7) the float64 solution's distance is held at
+# T1_F64, the plain CR's there.
+T1_SIZES = (1, 2, 3, 64, 316, 1000, 2048, 4096, 4097, 70_000, 1 << 15, 100_000, 1 << 20,
+            1_000_001, 4_194_305)
+T1_G_SIZES = (316, 4097, 100_000, 1 << 20, 1_000_001, 4_194_305)
 T1_G = (1e-4, 1e-2, 1.0, 50.0)
 T1_TOL = 5e-6
+T1_F64 = 1.0e-6
+T1_ABOVE = 4_194_305
 
 
 def tridiag_inputs(n: int, seed: int, device):
@@ -3471,15 +3499,39 @@ def banded64(counts, b, g) -> np.ndarray:
     return scipy.linalg.solve_banded((1, 1), ab, b.double().cpu().numpy())
 
 
+def t1_route(n: int) -> str:
+    """T1's route at n rows on this card, from its scratch size: the
+    segment solve takes 8 floats a segment (at most 512 segments,
+    csrc/tridiag.cu kMaxGrid), the multi-level route five arrays a level."""
+    from multivartv_tpu_torch.ops import kernels as K
+    work = int(K._lib().mvtv_xupdate_tridiag_work(n))
+    return f"segments {max(work // 8, 1)}" if work <= 8 * 512 else "multi-level"
+
+
+def t1_n_res() -> int:
+    """N_res: the largest n T1's segment solve takes on this card."""
+    lo, hi = 4096, 1 << 24
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if t1_route(mid) != "multi-level" else (lo, mid)
+    return lo
+
+
 def compare_tridiag(device, errs):
     """T1 (csrc/tridiag.cu) against its plain version, the cyclic reduction
     of solver/tridiag.py, on the same card inputs: max|x - plain| <= T1_TOL
     max|plain|, and a second run bit for bit; the float64 solution's
-    distance to each printed beside."""
+    distance to each printed beside, held at T1_F64 at 2^20."""
     import torch
     from multivartv_tpu_torch.ops import kernels as K
     from multivartv_tpu_torch.solver import tridiag
 
+    n_res = t1_n_res()
+    log(f"  T1: the segment solve up to N_res = {n_res:,} rows, the multi-level route above "
+        f"[{GPU_LINE}]")
+    check(n_res >= FUSED_ONE and t1_route(T1_ABOVE) == "multi-level",
+          f"T1: 2^20 rows on the segment solve (N_res {n_res:,}), {T1_ABOVE:,} on the "
+          f"multi-level route ({t1_route(T1_ABOVE)})")
     s = 1.3
     cases = [(n, 0.7 / (s * s)) for n in T1_SIZES] + [
         (n, g / (s * s)) for n in T1_G_SIZES for g in T1_G]
@@ -3500,9 +3552,12 @@ def compare_tridiag(device, errs):
         e_k = float(np.abs(x.double().cpu().numpy() - x64).max()) / s64
         e_p = float(np.abs(ref.double().cpu().numpy() - x64).max()) / s64
         check(err <= T1_TOL and bool(torch.isfinite(x).all()),
-              f"xupdate_tridiag n={n} g={g:.3g}: max|x - plain| / max|plain| {err:.3e} <= "
-              f"{T1_TOL:g} (float64 solution: kernel {e_k:.2e}, plain {e_p:.2e})")
+              f"xupdate_tridiag n={n} g={g:.3g} ({t1_route(n)}): max|x - plain| / max|plain| "
+              f"{err:.3e} <= {T1_TOL:g} (float64 solution: kernel {e_k:.2e}, plain {e_p:.2e})")
         check(torch.equal(x, x2), f"xupdate_tridiag n={n} g={g:.3g}: second run bit for bit")
+        if n == FUSED_ONE and i < len(T1_SIZES):
+            check(e_k <= T1_F64, f"xupdate_tridiag n=2^20 g={g:.3g}: float64 solution's distance "
+                  f"{e_k:.2e} <= {T1_F64:g} (plain {e_p:.2e})")
     errs["xupdate_tridiag"] = worst
 
 
@@ -3798,12 +3853,13 @@ def check_fused_jax(model, y) -> None:
         f"{jax_fit['iters']})")
 
 
-T1_TIMED = (316, 4096, 1 << 20)
+T1_TIMED = (316, 4096, 100_000, 1 << 20)
 
 
 def phase_timing_fused(device):
     """Phase 21: T1 at the default p = 1 mesh of n = 1e5 (316 knots), at
-    4,096 (its largest one-CTA system) and at 2^20 (the fused lasso) beside
+    4,096 (its largest one-segment system), at 1e5 (the fused lasso's mvtv)
+    and at 2^20 (the fused lasso's mvtv_one) beside
     its plain version and its bound (12 bytes a row), with its device time
     and kernels per call; then the fused-lasso ADMM iteration at N = 2^20
     (CUDA events, torch.profiler: ms per iteration, idle share).  Returns

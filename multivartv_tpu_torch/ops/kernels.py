@@ -43,9 +43,10 @@ and B11s have no ADMM caller, as in the JAX package.
 ``gram_matvec_tiled_2d_shard`` is B9s's kernel in its matvec mode, the
 sharded PCG's matvec (the JAX package leaves it to XLA).
 ``xupdate_tridiag`` (T1) is the exact p = 1 x-update, which the JAX package
-runs as one fused XLA program: PCR in one CTA up to 4,096 knots, a
-partition solve above (csrc/tridiag.cu); its plain version is the cyclic
-reduction of solver/tridiag.py.
+runs as one fused XLA program: one launch of the segment solve (each CTA
+a segment of rows in shared memory, a grid barrier between) up to ~1.6 M
+knots, a multi-level partition solve above (csrc/tridiag.cu); its plain
+version is the cyclic reduction of solver/tridiag.py.
 ``stream_copy`` and ``dual_struct`` (csrc/probe.cu) are measurement probes
 that no path launches.
 
@@ -1374,14 +1375,39 @@ def dual_struct(ins: Sequence[torch.Tensor], n_out: int, prox: bool):
     return outs, (torch.sum(partials) if prox else None)
 
 
+_TRIDIAG_WORK = {}
+_TRIDIAG_FLOATS = {}
+
+
+def _tridiag_work(lib, n: int, device, stream: int) -> int:
+    """Device pointer of T1's scratch for n rows on one stream of
+    ``device``: 8 floats a segment of the segment solve, or the levels of
+    the multi-level route (``mvtv_xupdate_tridiag_work``, asked once per
+    n); one buffer per device and stream, grown when a call needs more.
+    Launches on one stream run in order, so they share it."""
+    need = _TRIDIAG_FLOATS.get((device.index, n))
+    if need is None:
+        need = int(lib.mvtv_xupdate_tridiag_work(n))
+        if need < 0:
+            _raise_on(-need, "xupdate_tridiag")
+        _TRIDIAG_FLOATS[(device.index, n)] = need
+    key = (device.index, stream)
+    buf = _TRIDIAG_WORK.get(key)
+    if buf is None or buf.numel() < need:
+        # at least the segment solve's most: 8 floats for each of 512 segments
+        buf = torch.empty(max(need, 8 * 512), dtype=torch.float32, device=device)
+        _TRIDIAG_WORK[key] = buf
+    return buf.data_ptr()
+
+
 def xupdate_tridiag(counts: torch.Tensor, b: torch.Tensor, rho, scale: float) -> torch.Tensor:
     """T1, the exact p = 1 x-update: x with (diag(counts) + (rho s) s T) x =
     b, T the Neumann second difference (solver/tridiag.py).  counts and b
     are contiguous float32 (n,); rho a float32 scalar tensor on their
-    device, read by the kernel through its pointer.  On the card one call
-    (one launch up to 4,096 knots; above, 2 L + 1 for L partition levels,
-    each 16 times smaller: 5 at 2^20) and two allocations, x and the
-    levels' scratch."""
+    device, read by the kernel through its pointer.  On the card one launch
+    up to N_res rows (~1.6 M on an H100: the segment solve, cooperative
+    above 4,096 rows), 2 L + 1 above for L partition levels; one allocation
+    (x), the scratch cached per device and stream."""
     for v in (counts, b):
         if v.dtype != torch.float32 or v.ndim != 1 or v.shape != b.shape or not v.is_contiguous():
             raise ValueError(f"expected contiguous float32 counts and b of one shape (n,), got "
@@ -1391,11 +1417,11 @@ def xupdate_tridiag(counts: torch.Tensor, b: torch.Tensor, rho, scale: float) ->
         return xupdate_tridiag_reference(counts, b, rho, scale)
     dev = b.device
     lib = _lib()
+    stream = _stream(dev)
     x = torch.empty_like(b)
-    work = torch.empty(max(int(lib.mvtv_xupdate_tridiag_work(n)), 1), dtype=torch.float32,
-                       device=dev)
     err = lib.mvtv_xupdate_tridiag(counts.data_ptr(), b.data_ptr(), _scalar_ptr(rho, dev),
-                                   float(scale), x.data_ptr(), work.data_ptr(), n, _stream(dev))
+                                   float(scale), x.data_ptr(), _tridiag_work(lib, n, dev, stream),
+                                   n, stream)
     _raise_on(err, "xupdate_tridiag")
     launch_counts["xupdate_tridiag"] += 1
     return x
