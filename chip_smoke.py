@@ -54,7 +54,15 @@ recomputation, mvtv(folds=5, n_lambda=20) on
 the fused lasso at N = 1e5 against the JAX package's fit (FUSED_JAX), and
 mvtv_one on a 316^2 point cloud, the kd-tree's assignment against the
 device brute force's; phase 21 times T1 (316, 4096, 1e5 and 2^20 knots)
-and the fused-lasso iteration.
+and the fused-lasso iteration.  Phase 22 runs the x-update arms of
+SolverConfig at 2048^2 (n = 2^22) on the tiled route: the default,
+xla_packed=False (the exact float32 DCT-PCG, B10 its matvec) and
+spectral_cg=False (the bf16 natural-domain PCG) from one warm state,
+xla_packed=False against the exact route after the same iterations and
+spectral_cg=False against it after a capped mvtv_one, B10 timed at 2048^2;
+then solve_path_checkpointed at 316^2 resumed from a manifest inside a
+chunk against one uninterrupted path, and tv_penalty against a float64
+sum.  The bounds come from multivartv_tpu_torch/utils/roofline.py.
 It shows through the launch counters that the paths ran every kernel,
 measures the device-memory ceiling with a streaming-copy probe, times each
 kernel beside its plain version and its bound (B3-B5 also with their
@@ -74,7 +82,8 @@ exits non-zero at once.  It imports nothing of JAX.  Phases: 1 device,
 10 its timing and profile, 12 the p = 3 path, 13 its timing and profile,
 15 the profiles' and x-update routes' fits, 16 the sharded path and the
 repaired routes, 17 the row-slab kernels' timing, 20 the p = 1 path and
-user meshes, 21 T1's timing and the fused-lasso iteration.
+user meshes, 21 T1's timing and the fused-lasso iteration, 22 the x-update
+arms, the resumed lambda path and tv_penalty.
 Phase 11, run only when listed, re-solves the start of phase 9's 2048^2
 path at a tighter tolerance on both routes (the witness for that phase's
 gate); phase 14, run only when listed, runs the 4096^2 fits of phase 9
@@ -100,6 +109,7 @@ phase header carries the seconds since the start.
     python3 chip_smoke.py --phases 1,2,11     # the path-gap witness
     python3 chip_smoke.py --phases 1,2,19     # kernels at their launch sizes
     python3 chip_smoke.py --phases 1,2,20,21  # the p = 1 path, meshes, T1's timing
+    python3 chip_smoke.py --phases 1,2,22     # the x-update arms, the resumed path
 """
 
 from __future__ import annotations
@@ -2446,79 +2456,29 @@ def phase_timing(device):
     return times, rates
 
 
-# The published peaks of an H100 SXM at its 700 W limit (NVIDIA's data
-# sheet): device memory, the bytes bound's denominator, and bf16 on the
-# tensor cores, the operations bound of the DCT products (bf16 operands).
-# The streaming-copy probe's and copy_'s measured rates are printed beside
-# them as ceilings the card reached, not used as denominators.
-PEAK_HBM_BYTES = 3.35e12
-PEAK_BF16_FLOPS = 989e12
-
-
-# The halo rows a row-slab kernel reads besides its slab (csrc/dual.cu,
-# tiled.cu, rhs.cu): theta above and below and u above; v above and below;
-# alpha_0, alpha_2, u_0, u_2 above.
-SLAB_HALO_ROWS = {"dual_update_tiled_2d_shard": 5, "gram_residual_tiled_2d_shard": 2,
-                  "gram_matvec_tiled_2d_shard": 2, "rhs_tiled_2d_shard": 4}
-
-
-def kernel_work(name: str, m, batch: int = 1, k_iters: int = 4, n_steps: int = 3,
-                n_in: int = 0, n_out: int = 0, fused: bool = False):
-    """(bytes, operations) one call of a kernel must move and do at lattice
-    m: each input read once and each output written once (the per-block
-    partial sums aside); operations are the folded DCT products'.  fused:
-    B9s with b formed from oty, dta and dtu (24 bytes per knot, not 16)."""
-    n = int(np.prod(m))
-    halves = sum(2 * 2 * (v // 2) ** 2 for v in m)    # bf16 (Te, To) per axis
-    transform = n * sum(m)                            # one folded DCT, 2 flops per MAC
-    per_knot = {"dual_update_2d": 16 + 24,            # theta, 3 u -> 3 alpha, 3 u_new
-                "rhs_2d": 28 + 4,                     # 3 alpha, 3 u, oty -> b
-                "xupdate_pcg_2d_packed": 16 + 4,      # b, x0, counts, eigs -> x
-                "admm_iters_2d": 40 + 28,             # state, counts, oty, eigs -> state
-                "dual_update_tiled_2d": 16 + 20,      # theta, 3 u -> 3 u_new, dta, dtu
-                "gram_residual_tiled_2d": 20 + 4,     # v, counts, oty, dta, dtu -> r0
-                "gram_matvec_tiled_2d": 8 + 4,        # v, counts -> A v
-                "dual_update_tiled_3d": 32 + 36,      # theta, 7 u -> 7 u_new, dta, dtu
-                "gram_residual_tiled_3d": 20 + 4,     # v, counts, oty, dta, dtu -> r0
-                "rhs_tiled_3d": 60 + 4,               # 7 alpha, 7 u, oty -> b
-                "xupdate_pcg_2d": 16 + 4,             # b, x0, counts, eigs -> x
-                "gram_matvec_2d": 8 + 4,              # v, counts -> A v (and a dot)
-                "rhs_tiled_2d": 28 + 4,               # 3 alpha, 3 u, oty -> b
-                # the row-slab kernels: their twins', plus SLAB_HALO_ROWS
-                "dual_update_tiled_2d_shard": 16 + 20,
-                "gram_residual_tiled_2d_shard": 12 + 4,   # b, v, counts -> r0 (b given)
-                "gram_matvec_tiled_2d_shard": 8 + 4,
-                "rhs_tiled_2d_shard": 28 + 4,
-                "xupdate_tridiag": 8 + 4}             # counts, b -> x
-    if name == "admm_iters_2d_batched":               # counts and oty per fold, eigs shared
-        return batch * 64 * n + 4 * n + halves, batch * k_iters * 2 * n_steps * transform
-    if name == "dual_struct":                          # n_in lattices in, n_out out
-        return 4 * n * (n_in + n_out), 0
-    knot = 24 if fused and name == "gram_residual_tiled_2d_shard" else per_knot[name]
-    nbytes = knot * n + 4 * m[-1] * SLAB_HALO_ROWS.get(name, 0)
-    flops = 0
-    if name == "xupdate_pcg_2d_packed":
-        nbytes, flops = nbytes + halves, 2 * n_steps * transform
-    elif name == "xupdate_pcg_2d":                    # bf16 T0, T1; dense: twice the folded
-        nbytes, flops = nbytes + 2 * sum(v * v for v in m), 2 * n_steps * 2 * transform
-    elif name == "admm_iters_2d":
-        nbytes, flops = nbytes + halves, k_iters * 2 * n_steps * transform
-    return nbytes, flops
+def roofline():
+    """The port's roofline module (multivartv_tpu_torch/utils/roofline.py):
+    the published peaks of an H100 SXM at 700 W (device memory, the bytes
+    bound's denominator; bf16 on the tensor cores, the operations bound of
+    the DCT products), each kernel's work (kernel_work, SLAB_HALO_ROWS) and
+    its bound, which the kernels line prints as bound_ms.  The streaming-
+    copy probe's and copy_'s measured rates are printed beside the peaks as
+    ceilings the card reached, not used as denominators."""
+    from multivartv_tpu_torch.utils import roofline as rl
+    return rl
 
 
 def bound(name: str, m, **kw):
-    """(bound_ms, bound_by): the larger of bytes over PEAK_HBM_BYTES and
-    operations over PEAK_BF16_FLOPS."""
-    nbytes, flops = kernel_work(name, m, **kw)
-    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(bound_ms, bound_by) of one call of a kernel at lattice m
+    (roofline.bound)."""
+    return roofline().bound(name, m, **kw)
 
 
 def copy_ceiling(device) -> float:
     """The device-memory rate the card reaches, in bytes/s: the
     streaming-copy probe (csrc/probe.cu, launched by no solver path) on
     512 MB, bytes read plus bytes written over its time, with torch's copy_
-    of the same tensors timed beside it; both beside PEAK_HBM_BYTES."""
+    of the same tensors timed beside it; both beside the published peak."""
     import torch
     from multivartv_tpu_torch.ops import kernels as K
     src = torch.rand(128 << 20, device=device)
@@ -2533,8 +2493,9 @@ def copy_ceiling(device) -> float:
     rate = nbytes / (min(k1, k2) / 1e3)
     log(f"  stream_copy probe, 512 MB: {k1:.4f} / {k2:.4f} ms = {rate / 1e9:.1f} GB/s read + "
         f"written; torch copy_ {lib:.4f} ms = {nbytes / lib / 1e6:.1f} GB/s; bytes bound "
-        f"{nbytes / PEAK_HBM_BYTES * 1e3:.4f} ms at the published peak "
-        f"{PEAK_HBM_BYTES / 1e9:.0f} GB/s (the bytes bound's denominator) [{GPU_LINE}]")
+        f"{nbytes / roofline().PEAK_HBM_BYTES * 1e3:.4f} ms at the published peak "
+        f"{roofline().PEAK_HBM_BYTES / 1e9:.0f} GB/s (the bytes bound's denominator) "
+        f"[{GPU_LINE}]")
     del src, dst
     torch.cuda.empty_cache()
     return rate
@@ -3203,7 +3164,7 @@ def probe_dual_struct(device, errs, timed, n: int = 4096):
     copy_ms = cuda_time_ms(lambda: K.stream_copy(ins[0], dst), 20, warmup=3)
     log(f"  stream_copy 4096^2 (64 MB): {copy_ms:.4f} ms = "
         f"{2 * n * n * 4 / copy_ms / 1e6:.1f} GB/s, bytes bound "
-        f"{2 * n * n * 4 / PEAK_HBM_BYTES * 1e3:.4f} ms [{GPU_LINE}]")
+        f"{2 * n * n * 4 / roofline().PEAK_HBM_BYTES * 1e3:.4f} ms [{GPU_LINE}]")
     for prox, n_out in ((False, 8), (True, 5)):
         outs, st = K.dual_struct(ins, n_out, prox)
         ref, rst = K.dual_struct_reference(ins, n_out, prox)
@@ -3905,6 +3866,212 @@ def phase_timing_fused(device):
     return times
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the x-update arms of SolverConfig on the 2-D tiled route, a
+# resumed lambda path, tv_penalty
+# ---------------------------------------------------------------------------
+
+# bench.py's 2048^2 cell (bench.py:479-484): n = 2^22, lambda = 0.05.  Each
+# arm runs ARMS_ITERS admm_fixed_iterations from one warm state (ARMS_WARM
+# default iterations from mvtv_one's initial state), then is timed over as
+# many more (profiling.measure_iterations_per_s).
+ARMS_DATA = (lambda: bench_data(1 << 22), None, 0.05)
+ARMS = {"default": {}, "xla_packed=False": {"xla_packed": False},
+        "spectral_cg=False": {"spectral_cg": False}}
+ARMS_WARM = 8
+ARMS_ITERS = 30
+# xla_packed=False against the exact route after the same iterations,
+# relative objective, two-sided: both are the exact float32 DCT-PCG with
+# the same tolerance; they differ in B8 and B10 against their plain
+# versions (sums in another order).
+ARMS_FIXED_GAP = 1e-6
+# spectral_cg=False (3 fixed bf16 CG steps per iteration) against the
+# exact route, mvtv_one capped at ARMS_CAP iterations on both, one-sided
+# at the repo's matched-objective gate (tests/test_pad_single.py:118).
+ARMS_CAP = 600
+# The resumed path: 316^2 (the default mesh at n = 1e5, bivariate_exp),
+# CKPT_LAMBDAS lambdas in chunks of CKPT_EVERY, the manifest pointed back
+# at lambda index CKPT_RESUME (inside the second chunk), the merged
+# train_mse against one uninterrupted solve_path at CKPT_GAP (relative).
+CKPT_LAMBDAS = 10
+CKPT_EVERY = 4
+CKPT_RESUME = 5
+CKPT_GAP = 1e-4
+TV_PENALTY_GAP = 1e-6
+
+
+def arm_config(name: str, **extra):
+    from multivartv_tpu_torch import SolverConfig
+    return SolverConfig(**ARMS[name], **extra)
+
+
+def phase_arms(device):
+    """Phase 22: SolverConfig(xla_packed=False) and (spectral_cg=False)
+    beside the default on the 2048^2 tiled route, under the launch
+    counters: ms and CG steps per iteration, B8/B9/B10 launches and the
+    roofline model's bound of each arm; xla_packed=False against the exact
+    route after the same iterations, spectral_cg=False against it after a
+    capped mvtv_one; then solve_path_checkpointed resumed from a mid-chunk
+    manifest at 316^2, and tv_penalty against a float64 sum at 2048^2.
+    Returns (launches, {kernel: (ms, plain_ms, m)}) with B10 timed at
+    2048^2, where xla_packed=False launches it."""
+    import torch
+    from multivartv_tpu_torch.api import _setup
+    from multivartv_tpu_torch.config import DEFAULT_MESH, SolverConfig
+    from multivartv_tpu_torch.ops import diff, interp
+    from multivartv_tpu_torch.ops import kernels as K
+    from multivartv_tpu_torch.solver import admm, xupdate
+    from multivartv_tpu_torch.utils import profiling
+
+    log("phase 22: the x-update arms (xla_packed, spectral_cg) at 2048^2 n=2^22, the "
+        "resumed lambda path, tv_penalty")
+    make, m, lam_v = ARMS_DATA
+    x, y = make()
+    _, _, spec, _, _, ops, problem = _setup(x, y, m, None, SolverConfig(), DEFAULT_MESH,
+                                            device)
+    lam = torch.tensor(lam_v, dtype=torch.float32, device=device)
+    check(admm.solve_route(ops, SolverConfig()) == "tiled",
+          f"phase 22: {ops.m} runs the tiled route")
+    layout = xupdate.spectral_layout(ops)
+
+    def objective(state):
+        fitted = interp.gather_fitted(state.theta, problem.flat_idx)
+        return objective64({"theta_lattice": state.theta.cpu().numpy(),
+                            "fitted": fitted.cpu().numpy(), "y": y, "mesh_spec": spec,
+                            "lambda": lam_v})
+
+    warm = admm.admm_fixed_iterations(ops, problem, lam, admm.initial_state(ops, problem, lam),
+                                      SolverConfig(), ARMS_WARM)
+    K.reset_launch_counts()
+    objs = {}
+    for name in ARMS:
+        cfg = arm_config(name)
+        before = dict(K.launch_counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = admm.admm_fixed_iterations(ops, problem, lam, warm, cfg, ARMS_ITERS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        used = {k: K.launch_counts[k] - before[k]
+                for k in ("dual_update_tiled_2d", "gram_residual_tiled_2d",
+                          "gram_matvec_tiled_2d")}
+        steps = (out.cg_iters - warm.cg_iters) / ARMS_ITERS
+        rate = profiling.measure_iterations_per_s(
+            lambda s, k: admm.admm_fixed_iterations(ops, problem, lam, s, cfg, k), warm,
+            warmup=1, iters=ARMS_ITERS)
+        x_update = {"default": "spectral", "xla_packed=False": "pcg",
+                    "spectral_cg=False": "natural"}[name]
+        rep = roofline().model_report(ops.m, n_steps=max(1, round(steps)), layout=layout,
+                                      x_update=x_update, measured_iters_per_s=rate)
+        objs[name] = objective(out)
+        log(f"  {name}: {1e3 / rate:.3f} ms per iteration ({rate:.1f} iterations/s; first run "
+            f"{seconds / ARMS_ITERS * 1e3:.3f} ms), {steps:.2f} CG steps per iteration, "
+            f"launches {used} in {ARMS_ITERS} iterations; model bound "
+            f"{1e3 / rep['model_bound_iters_per_s']:.3f} ms per iteration ({rep['x_update']}, "
+            f"{rep['layout']}, {rep['model_gb_per_iter']} GB, "
+            f"{rep['model_tflop_per_iter']} TFLOP), {rep['frac_of_model_bound']} of it "
+            f"[{GPU_LINE}]")
+        check(used["dual_update_tiled_2d"] == ARMS_ITERS,
+              f"{name}: B8 launched once per iteration ({used['dual_update_tiled_2d']})")
+        if name == "default":
+            check(used["gram_residual_tiled_2d"] == ARMS_ITERS,
+                  f"{name}: B9 launched once per iteration ({used['gram_residual_tiled_2d']})")
+        else:
+            check(used["gram_residual_tiled_2d"] == 0,
+                  f"{name}: B9 not launched ({used['gram_residual_tiled_2d']})")
+            check(used["gram_matvec_tiled_2d"] > ARMS_ITERS,
+                  f"{name}: B10 launched more than once per iteration "
+                  f"({used['gram_matvec_tiled_2d']} in {ARMS_ITERS})")
+    launches = dict(K.launch_counts)
+
+    exact = admm.admm_fixed_iterations(ops, problem, lam, warm,
+                                       SolverConfig(use_kernels=False), ARMS_ITERS)
+    exact_obj = objective(exact)
+    for name, obj in objs.items():
+        log(f"  {name}: objective after {ARMS_ITERS} iterations {obj:.9e}, exact route "
+            f"{exact_obj:.9e}, {obj / exact_obj - 1:+.3e}")
+    gap = objs["xla_packed=False"] / exact_obj - 1
+    check(abs(gap) <= ARMS_FIXED_GAP, f"xla_packed=False against the exact route after "
+          f"{ARMS_ITERS} iterations: {gap:+.3e}, |.| <= {ARMS_FIXED_GAP:g}")
+
+    fits = {}
+    for name, extra in (("spectral_cg=False", {}), ("exact", {"use_kernels": False})):
+        cfg = dict(ARMS.get(name, {}), max_iters=ARMS_CAP, **extra)
+        fits[name] = fit(x, y, m, lam_v, device, **cfg)
+        log(f"  mvtv_one {name} (cap {ARMS_CAP}): {route_split(fits[name])}, converged "
+            f"{fits[name]['diagnostics']['converged']}, {fits[name]['seconds']:.2f} s "
+            f"[{GPU_LINE}]")
+    gap = fits["spectral_cg=False"]["objective"] / fits["exact"]["objective"] - 1
+    check(gap <= LARGE_GAP, f"mvtv_one spectral_cg=False against the exact route (cap "
+          f"{ARMS_CAP}): objective {gap:+.3e} <= {LARGE_GAP:g}")
+
+    th = warm.theta
+    tv = float(diff.tv_penalty(th, ops.binaries, ops.scales))
+    deltas = [float(v) for v in spec.deltas.cpu()]
+    tv64 = sum(sc * np.abs(v).sum() for sc, v in block_diffs(th.double().cpu().numpy(),
+                                                             deltas))
+    check(abs(tv / tv64 - 1) <= TV_PENALTY_GAP, f"tv_penalty at {ops.m}: {tv:.9e} against "
+          f"float64 {tv64:.9e}, {tv / tv64 - 1:+.3e}, |.| <= {TV_PENALTY_GAP:g}")
+
+    v = warm.theta
+    run = (lambda: K.gram_matvec_tiled_2d(v, problem.counts, warm.rho, ops.scales))
+    plain = (lambda: K.gram_matvec_tiled_2d_reference(v, problem.counts, warm.rho, ops.scales))
+    p1 = cuda_time_ms(plain, 5)
+    k_ms = time_call("gram_matvec_tiled_2d", f"{ops.m} (xla_packed=False's CG matvec)", run,
+                     ops.m)
+    p2 = cuda_time_ms(plain, 5)
+    times = {"gram_matvec_tiled_2d": (k_ms, min(p1, p2), ops.m)}
+    del warm, exact, problem, ops
+    torch.cuda.empty_cache()
+    check_resumed_path(device)
+    return launches, times
+
+
+def check_resumed_path(device):
+    """solve_path_checkpointed at 316^2 (n = 1e5): CKPT_LAMBDAS lambdas in
+    chunks of CKPT_EVERY into a temporary directory; the carry after
+    lambda CKPT_RESUME written as a checkpoint (a run stopped there) and the
+    manifest pointed at it; the resumed path's merged train_mse against one
+    uninterrupted solve_path."""
+    import tempfile
+
+    import torch
+    from multivartv_tpu_torch.api import _setup
+    from multivartv_tpu_torch.config import DEFAULT_MESH, PathConfig, SolverConfig
+    from multivartv_tpu_torch.solver import path
+    from multivartv_tpu_torch.utils import checkpoint
+
+    x, y = bivariate_exp(MVTV_N)
+    cfg, pcfg = SolverConfig(), PathConfig(n_lambda=CKPT_LAMBDAS, store="mse")
+    _, _, _, _, _, ops, problem = _setup(x, y, None, None, cfg, DEFAULT_MESH, device)
+    lambdas = path.create_lambdas(path.lam_max(ops, problem, pcfg), pcfg)
+    t0 = time.perf_counter()
+    full = path.solve_path(ops, problem, lambdas, cfg, pcfg)
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        first = path.solve_path_checkpointed(ops, problem, lambdas, cfg, pcfg, tmp,
+                                             checkpoint_every=CKPT_EVERY)
+        head = path.solve_path(ops, problem, lambdas[:CKPT_RESUME + 1], cfg, pcfg)
+        checkpoint.save_path_state(tmp, head.final_state, CKPT_RESUME)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed = path.solve_path_checkpointed(ops, problem, lambdas, cfg, pcfg, tmp,
+                                               checkpoint_every=CKPT_EVERY)
+        torch.cuda.synchronize()
+        t_res = time.perf_counter() - t0
+    ref = full.train_mse.double()
+    for label, res in (("checkpointed", first), ("resumed", resumed)):
+        gap = float(((res.train_mse.double() - ref).abs() / ref.abs()).max())
+        check(res.train_mse.shape == ref.shape and gap <= CKPT_GAP,
+              f"solve_path_checkpointed 316^2 ({label}, {CKPT_LAMBDAS} lambdas, every "
+              f"{CKPT_EVERY}, resumed after index {CKPT_RESUME}): train_mse within {gap:.2e} of "
+              f"the uninterrupted path, <= {CKPT_GAP:g}")
+    log(f"  316^2 path: uninterrupted {t_full:.2f} s, resumed (lambdas {CKPT_RESUME + 1}.."
+        f"{CKPT_LAMBDAS - 1}) {t_res:.2f} s; iterations {full.iters.tolist()} / resumed "
+        f"{resumed.iters.tolist()} [{GPU_LINE}]")
+
+
 SOURCES = {
     "dual_update_2d": ("multivartv_tpu_torch/csrc/dual.cu",
                        "multivartv_tpu/ops/pallas_kernels.py:262"),
@@ -3966,8 +4133,8 @@ def phase_mvtv_default(device):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,12,13,15,16,17,20,21",
-                    help="comma-separated phases to run (default: 1-10, 12, 13, 15-17, 20, 21; "
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,12,13,15,16,17,20,21,22",
+                    help="comma-separated phases to run (default: 1-10, 12, 13, 15-17, 20-22; "
                     "11, 14, 18 and 19 only when listed)")
     phases = {int(v) for v in ap.parse_args(argv).phases.split(",")}
     phase_device()
@@ -4022,6 +4189,10 @@ def main(argv=None) -> int:
     if 21 in phases:
         timed.update({k: (ms, plain, m, {})
                       for k, (ms, plain, m) in phase_timing_fused(device).items()})
+    if 22 in phases:
+        launches_arms, times_arms = phase_arms(device)
+        launches = {k: launches.get(k, 0) + launches_arms[k] for k in launches_arms}
+        timed.update({k: (ms, plain, m, {}) for k, (ms, plain, m) in times_arms.items()})
     if 8 in phases:
         phase_mvtv_default(device)
     if 11 in phases:

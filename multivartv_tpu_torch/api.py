@@ -75,10 +75,14 @@ class MVTVModel:
         return interp_ops.gather_fitted(theta, idx).cpu().numpy()
 
     def plot(self, **kwargs):
-        raise NotImplementedError("plotting is not ported yet (ROADMAP A8)")
+        """plotting.plot_model (needs matplotlib)."""
+        from multivartv_tpu_torch import plotting
+        return plotting.plot_model(self, **kwargs)
 
     def plot_residuals(self, **kwargs):
-        raise NotImplementedError("plotting is not ported yet (ROADMAP A8)")
+        """plotting.plot_residuals (needs matplotlib)."""
+        from multivartv_tpu_torch import plotting
+        return plotting.plot_residuals(self, **kwargs)
 
 
 def resolve_device(device) -> torch.device:

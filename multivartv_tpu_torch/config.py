@@ -13,10 +13,10 @@ Renamed from the JAX package:
     kernels (ops/kernels.py) on the lattice routes; False selects the
     exact-f32 per-iteration route, the explicit comparison arm.
 
-Not yet ported (ROADMAP A1); the port runs the JAX default of each:
-  * ``SolverConfig.xla_packed`` and ``spectral_cg`` — the port runs the
-    JAX default of both (True): above 2^20 knots the x-update is the
-    spectral-correction CG (solver/xupdate.py).
+``xla_packed`` and ``spectral_cg`` keep the JAX names: they pick the
+x-update of the routes that run the folded bf16 DCT (the tiled, tiled3 and
+spectral routes, and the whole route where no dense DCT matrices exist;
+solver/xupdate.py), while the route's kernels stay on.
 """
 
 from __future__ import annotations
@@ -59,6 +59,18 @@ class SolverConfig:
     # Finish with exact-f32 transforms when the bf16-preconditioned solve
     # stalls on its residual floor (solver/admm.py::_stalled_while).
     bf16_residual_escape: bool = True
+    # The x-update of the routes that run the folded bf16 DCT
+    # (xupdate.xla_packed_applies): True = the bf16 fixed-step PCG on the
+    # folded DCT; False = the exact float32 tolerance-driven DCT-PCG
+    # (cg_tol, cg_max_iters) with the route's kernels kept on, the
+    # comparison arm of the matched-objective gates.  The whole route's
+    # kernels B3-B7 do not read it.
+    xla_packed: bool = True
+    # Where xla_packed applies: True = the CG in the spectral domain as a
+    # correction solve from the exact float32 r0 (D'D diagonal there);
+    # False = the fixed-step PCG in the natural domain, its preconditioner
+    # the bf16 packed DCT (JAX xupdate.py:489-500).
+    spectral_cg: bool = True
     # Convergence-check cadence of the kernel chain: None = AUTO_CHUNK.
     chunk_iters: Optional[int] = None
     # Store the spectral-correction CG's block vectors in bfloat16 (dots

@@ -167,3 +167,9 @@ def zeros_like_blocks(m: Sequence[int], binaries: Sequence[Binary],
                       dtype=torch.float32, device=None) -> Blocks:
     m = tuple(int(v) for v in m)
     return tuple(torch.zeros(m, dtype=dtype, device=device) for _ in binaries)
+
+
+def tv_penalty(theta: torch.Tensor, binaries: Sequence[Binary],
+               scales: Sequence[float]) -> torch.Tensor:
+    """||D theta||_1, the TV penalty's value (JAX ops/diff.py:246-249)."""
+    return blocks_abs_sum(apply_D(theta, binaries, scales))

@@ -65,7 +65,14 @@ tests walk the card's route; only each kernel wrapper looks at the device):
     package's plain fallthrough (xupdate.py:502-527).  With
     ``bf16_residual_escape`` a stalled bf16 solve (Boyd, dct_pcg) finishes
     on the exact route within the same cap, where the dense DCT matrices
-    exist (up to 2048 per axis).  p = 1 with dct_pcg runs the "tridiag"
+    exist (up to 2048 per axis) and the x-update runs bf16 transforms
+    (``_bf16_escape_applies``).  ``SolverConfig.xla_packed`` and
+    ``spectral_cg`` pick the x-update of the routes that run the folded
+    bf16 DCT (solver/xupdate.py): the spectral CG (both True), the
+    natural-domain bf16 PCG (spectral_cg=False) or the exact float32 PCG
+    (xla_packed=False, no escape there), with every stage around it on the
+    route's kernels; the whole route's B3-B7 do not read them, as in the
+    JAX package.  p = 1 with dct_pcg runs the "tridiag"
     route: a plain rhs and dual stage around the exact tridiagonal
     x-update ``xupdate_tridiag`` (T1), no escape (the x-update is exact
     float32, as the JAX package's cyclic reduction).
@@ -121,7 +128,7 @@ from multivartv_tpu_torch.solver import pad as pad_lib
 from multivartv_tpu_torch.solver import tridiag
 from multivartv_tpu_torch.solver.problem import Operators, Problem, problem_at
 from multivartv_tpu_torch.solver.xupdate import (counts_to_layout, n_fixed_steps, solve_x,
-                                                 whole_xupdate)
+                                                 whole_xupdate, xla_packed_applies)
 
 # Convergence-check cadence of the kernel chain when chunk_iters is None.
 AUTO_CHUNK = 4
@@ -357,8 +364,10 @@ def make_admm_iteration(ops: Operators, problem: Problem, lam: torch.Tensor,
     tiled = route in CARRY_ROUTES
     kernel_stats = route in ("whole",) + CARRY_ROUTES
     one_kernel = route == "whole" and xupdate_supported(ops.m)
-    spectral_cg = cfg.x_solver == "dct_pcg" and (
-        route in SPECTRAL_ROUTES
+    # counts in the spectral CG's layout, only where that CG runs (JAX
+    # admm.py:279-282).
+    spectral_cg = (
+        (route in SPECTRAL_ROUTES and cfg.spectral_cg and xla_packed_applies(ops, cfg))
         or (route == "whole" and whole_xupdate(ops, cfg, one_kernel) == "spectral"))
     counts_blocked = counts_to_layout(ops, problem.counts, cfg) if spectral_cg else None
     dtype = problem.oty.dtype
@@ -372,8 +381,9 @@ def make_admm_iteration(ops: Operators, problem: Problem, lam: torch.Tensor,
     def body(s: ADMMState) -> ADMMState:
         dta = dtu = None
         if tiled:
-            # b is never formed: the residual kernel assembles it from the
-            # carries (JAX admm.py:303-316, 334-345).
+            # Under the spectral CG b is never formed: the residual kernel
+            # assembles it from the carries (JAX admm.py:303-316, 334-345);
+            # the other x-updates form it from them.
             theta, cg_it = solve_x(ops, problem.counts, cbar, None, s.rho, s.theta, cfg,
                                    tiled=True, counts_blocked=counts_blocked,
                                    rhs_parts=(problem.oty, s.dta, s.u_scale, s.dtu))
@@ -491,6 +501,18 @@ def admm_fused_chunk(ops: Operators, problem: Problem, lam: torch.Tensor,
         chunked_iters=state.chunked_iters + k_iters)
 
 
+def _bf16_escape_applies(ops: Operators, cfg: SolverConfig, route: Optional[str]) -> bool:
+    """Whether a single solve arms the bf16 escape (JAX admm.py:537-555):
+    Boyd with dct_pcg on a kernel route where the dense float32 DCT
+    matrices exist (up to 2048 per axis) and the x-update runs bf16
+    transforms: the folded bf16 DCT (xla_packed_applies; not under
+    xla_packed=False) or the whole route's one-kernel x-update."""
+    if not (route not in (None, "shard", "tridiag") and cfg.bf16_residual_escape
+            and _boyd_dct(cfg) and ops.dct_mats is not None):
+        return False
+    return xla_packed_applies(ops, cfg) or (route == "whole" and xupdate_supported(ops.m))
+
+
 def _not_converged_dev(s: ADMMState) -> torch.Tensor:
     """Device part of the loop predicate: not yet Boyd-converged and
     finite (a NaN/Inf residual stops the solve; see solver_diagnostics)."""
@@ -574,8 +596,7 @@ def admm_solve(ops: Operators, problem: Problem, lam: torch.Tensor, state: ADMMS
     def tail_cond(s):
         return _not_converged(s, cfg.max_iters)
 
-    escape = (route not in (None, "shard", "tridiag") and cfg.bf16_residual_escape
-              and _boyd_dct(cfg) and ops.dct_mats is not None)
+    escape = _bf16_escape_applies(ops, cfg, route)
     if escape:
         f32_cfg = dataclasses.replace(cfg, use_kernels=False, chunk_iters=1)
         tail_body = make_admm_iteration(ops, problem, lam, f32_cfg, stop_ntheta=s_nt,
@@ -721,7 +742,8 @@ def batched_kernel_route(ops: Operators, problem: Problem, cfg: SolverConfig) ->
     applies (see kernel_route, which raises where no kernel route exists),
     with counts per element (rank p + 1, CV folds) or shared (rank p, a
     lambda sweep), under Boyd stopping with dct_pcg (B5's statistics are
-    Boyd's, JAX admm.py:768-775).  JAX's 1 MB VMEM gate
+    Boyd's, JAX admm.py:768-775; B5 does not read xla_packed or
+    spectral_cg, as JAX's fused_batched_available).  JAX's 1 MB VMEM gate
     (pallas_kernels.py:1056-1066) is a TPU rule with no counterpart here.
     On the other kernel routes (tiled above 2^20 knots, tiled3, spectral2,
     spectral3, spectralN) it is False: admm_solve_batched runs each element
@@ -753,7 +775,8 @@ def _element_config(ops: Operators, cfg: SolverConfig) -> SolverConfig:
     runs the exact route (on a TPU JAX's vmapped solve still takes the bf16
     spectral CG on even lattices there, the port the float32 PCG).  At
     p = 1 an element keeps the "tridiag" route (T1, one fold after
-    another; one launch per fold batch is ROADMAP A13)."""
+    another; one launch per fold batch is ROADMAP A13).  xla_packed and
+    spectral_cg reach each element's x-update unchanged."""
     route = solve_route(ops, cfg)
     keep = route == "tridiag" or (_boyd_dct(cfg) and route in SPECTRAL_ROUTES)
     return dataclasses.replace(cfg, bf16_residual_escape=False,

@@ -16,8 +16,8 @@ C).  The path solves a descending grid, warm-starting theta, u and rho
 from one lambda to the next with rho_init = lambdas[0] / 5 (mbs_path,
 solvers.cpp:204-222); the JAX ``lax.scan`` is a Python loop.
 ``solve_path_batch`` runs the same path for a batch of problems (the CV
-folds) through ``admm_solve_batched``.  The JAX package's
-``solve_path_checkpointed`` is ROADMAP A8.
+folds) through ``admm_solve_batched``; ``solve_path_checkpointed`` solves
+it in chunks that it saves and resumes (utils/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -224,3 +224,70 @@ def solve_path_batch(ops: Operators, problems: Problem, lambdas: torch.Tensor,
         outs.append(_step_outputs(state, fits, ftrue_b, problems, store_theta))
         state = state0 if not pcfg.warm_start else _reset_counters(state)
     return _path_result(lambdas, outs, state, batched=True)
+
+
+_PATH_RES_FIELDS = ("train_mse", "test_mse", "iters", "cg_iters", "thetas", "fitted")
+
+
+def solve_path_checkpointed(ops: Operators, problem: Problem, lambdas: torch.Tensor,
+                            cfg: SolverConfig, pcfg: PathConfig, checkpoint_dir: str,
+                            checkpoint_every: int = 10,
+                            ftrue: Optional[torch.Tensor] = None) -> PathResult:
+    """The lambda path in chunks of checkpoint_every lambdas, resumable
+    (JAX path.py:287-360): after each chunk its per-lambda results and the
+    warm-start carry are saved to checkpoint_dir (utils/checkpoint.py, the
+    JAX package's format); a directory that holds a carry resumes after its
+    lambda and returns the whole path, the saved chunks' results merged
+    with the new ones.  A checkpoint that covers every lambda returns the
+    saved path without solving.  Where the chunks' results were not saved
+    (an older directory), the result covers only the lambdas solved now,
+    with a logged warning; if that leaves none, ValueError.  The result's
+    final_state is the carry after the last lambda; its route split
+    (chunked_iters, exact_iters, escaped) is None, as the saved chunks do
+    not hold it."""
+    from multivartv_tpu_torch.utils import checkpoint as ckpt
+
+    lambdas = torch.as_tensor(lambdas).reshape(-1)
+    n = int(lambdas.shape[0])
+    state = admm.initial_state(ops, problem, lambdas[0] / 5.0)
+    start = 0
+    restored = ckpt.load_path_state(checkpoint_dir, state)
+    if restored is not None:
+        state, done_idx = restored
+        start = done_idx + 1
+
+    prior = ckpt.load_path_results(checkpoint_dir, start)
+    dev = lambdas.device
+    pieces = [] if prior is None else [
+        {k: torch.as_tensor(v, device=dev) for k, v in chunk.items()} for chunk in prior]
+    result_start = start if prior is None else 0
+    if prior is None and start > 0:
+        get_logger().warning(
+            "checkpoint at %s holds no saved chunk results; the result covers only the "
+            "remaining %d lambdas", checkpoint_dir, n - start)
+
+    i = start
+    while i < n:
+        j = min(i + checkpoint_every, n)
+        res = solve_path(ops, problem, lambdas[i:j], cfg, pcfg, ftrue=ftrue, init_state=state)
+        state = res.final_state
+        fields = {f: getattr(res, f) for f in _PATH_RES_FIELDS}
+        ckpt.save_path_results(checkpoint_dir, i, j, fields)
+        ckpt.save_path_state(checkpoint_dir, state, j - 1, meta={"n_lambda": n})
+        pieces.append(fields)
+        i = j
+
+    if not pieces:
+        raise ValueError(f"the checkpoint already covers all {n} lambdas but holds no saved "
+                         f"results; delete {checkpoint_dir} to solve the path again")
+
+    def cat(field):
+        vals = [p.get(field) for p in pieces]
+        if any(v is None for v in vals):
+            return None
+        return torch.cat(vals, dim=0)
+
+    return PathResult(
+        lambdas=lambdas[result_start:], train_mse=cat("train_mse"), test_mse=cat("test_mse"),
+        iters=cat("iters"), cg_iters=cat("cg_iters"), thetas=cat("thetas"),
+        fitted=cat("fitted"), final_state=state)

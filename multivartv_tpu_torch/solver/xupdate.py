@@ -37,8 +37,16 @@ exact route; then for ``dct_pcg`` by route:
     transforms are the bf16-operand products of ops/dct.py in the
     quartered, blocked or packed layout (``spectral_layout``), the block
     vectors float32 or, above 2^23 knots, bf16 (``spectral_vec_dtype``);
+  * ``SolverConfig(spectral_cg=False)`` on the routes above (those where
+    ``xla_packed_applies``): the fixed-step bf16 PCG in the natural domain,
+    its preconditioner the packed DCT solve on the bf16 folded halves, its
+    matvec ``gram_matvec_tiled_2d`` (B10) on the 2-D tiled route (JAX
+    xupdate.py:489-500); b is formed from the carries, so B9 is not
+    launched;
   * everywhere else (among others the tiled and spectral routes above
-    8192 per axis, where no folded halves exist), and for ``jacobi_pcg``
+    8192 per axis, where no folded halves exist, and every route of the
+    spectral CG under ``SolverConfig(xla_packed=False)``, the exact
+    float32 arm with the route's kernels kept on), and for ``jacobi_pcg``
     and ``cg`` on every route, the plain PCG (fixed steps with
     ``cg_fixed_iters``, else tolerance-driven):
     preconditioned by the dense float32 DCT solve with TF32 off, or the FFT
@@ -81,6 +89,19 @@ _EPS = 1e-30
 
 def n_fixed_steps(cfg: SolverConfig) -> int:
     return cfg.cg_fixed_iters if cfg.cg_fixed_iters is not None else 3
+
+
+def xla_packed_applies(ops: Operators, cfg: SolverConfig) -> bool:
+    """Whether the x-update runs the folded bf16 DCT (JAX
+    _xla_packed_applies, xupdate.py:44-58): SolverConfig.xla_packed with
+    dct_pcg where the folded halves and their packed eigenvalues exist.
+    The JAX package also asks for a TPU; the port asks nothing of the
+    device, so it holds wherever the routes of the spectral-correction CG
+    run (the tiled, tiled3 and spectral routes, and the whole route without
+    dense DCT matrices).  On the whole route with dense matrices the
+    kernels B3, B6 and B7 come first, as in the JAX package."""
+    return (cfg.xla_packed and cfg.x_solver == "dct_pcg" and ops.dct_halves is not None
+            and ops.gram_eigs_packed is not None)
 
 
 def spectral_layout(ops: Operators) -> Optional[str]:
@@ -255,8 +276,9 @@ def whole_xupdate(ops: Operators, cfg: SolverConfig, one_kernel: bool = True) ->
     """The branch solve_x takes on the whole-lattice route: "direct"
     (dct_direct), "packed" (xupdate_pcg_2d_packed), "dense"
     (xupdate_pcg_2d), "fused" (gram_matvec_2d under the fused-dot PCG),
-    "spectral" (the spectral-correction CG, plain r0) or "pcg" (the plain
-    PCG)."""
+    "spectral" (the spectral-correction CG, plain r0), "natural" (the
+    bf16 fixed-step PCG in the natural domain, spectral_cg=False) or "pcg"
+    (the plain PCG; also xla_packed=False without dense matrices)."""
     if cfg.x_solver == "dct_direct":
         return "direct"
     if cfg.x_solver != "dct_pcg":
@@ -265,7 +287,9 @@ def whole_xupdate(ops: Operators, cfg: SolverConfig, one_kernel: bool = True) ->
         if not one_kernel:
             return "fused"
         return "packed" if ops.dct_halves_lp is not None else "dense"
-    return "spectral" if spectral_layout(ops) is not None else "pcg"
+    if not xla_packed_applies(ops, cfg):
+        return "pcg"
+    return "spectral" if cfg.spectral_cg else "natural"
 
 
 def _solve_fused(ops: Operators, counts, cbar, b, rho, x0, cfg: SolverConfig):
@@ -295,6 +319,36 @@ def _solve_fused(ops: Operators, counts, cbar, b, rho, x0, cfg: SolverConfig):
                 rhat = dct_ops.dctn_mat(r, mats)
                 zhat = rhat / w
                 return dct_ops.idctn_mat(zhat, mats), torch.sum(rhat * zhat)
+
+    res = pcg_fused(matvec_dot, precond_dot, b, x0, n_iters=n_fixed_steps(cfg))
+    return res.x, res.iters
+
+
+def _solve_natural(ops: Operators, counts, cbar, b, rho, x0, cfg: SolverConfig, tiled: bool):
+    """SolverConfig(spectral_cg=False): n fixed PCG steps in the natural
+    domain with the dots riding the operators (JAX xupdate.py:489-500):
+    the preconditioner is the packed DCT solve of (mean(counts) I + rho
+    D'D) on the bf16 folded halves (dctn_packed's rounding points are JAX's
+    mat_dtype=bf16 ones), the vectors float32; the matvec is
+    gram_matvec_tiled_2d (B10) on the 2-D tiled route, as the JAX package's
+    tiled_ok makes it, and plain PyTorch elsewhere (tiled3 included)."""
+    halves = ops.dct_halves_lp
+    w = cbar + rho * ops.gram_eigs_packed
+    if tiled and len(ops.m) == 2:
+        def matvec(v):
+            return kernels.gram_matvec_tiled_2d(v, counts, rho, ops.scales)
+    else:
+        def matvec(v):
+            return counts * v + rho * ops.apply_gram(v)
+
+    def matvec_dot(v):
+        av = matvec(v)
+        return av, torch.sum(v * av)
+
+    def precond_dot(r):
+        rhat = dct_ops.dctn_packed(r, halves)
+        zhat = rhat / w
+        return dct_ops.idctn_packed(zhat, halves), torch.sum(rhat * zhat)
 
     res = pcg_fused(matvec_dot, precond_dot, b, x0, n_iters=n_fixed_steps(cfg))
     return res.x, res.iters
@@ -382,12 +436,12 @@ def solve_x(ops: Operators, counts: torch.Tensor, cbar: torch.Tensor,
     whole-lattice route, or at p = 1 the "tridiag" route; one_kernel: its
     one-kernel gate passes; tiled: the large-lattice and shard routes, where
     rhs_parts = (oty, dta, u_scale, dtu) lets the residual kernel form b
-    itself (b may then be None);
+    itself (b may then be None; every other branch forms b from them);
     spectral: the no-kernel spectral routes (b given); counts_blocked:
     counts in the spectral layout, converted once per solve by the caller.
     Operators cut to row slabs (ops.slab) take the plain PCG on the slabs."""
-    dct = cfg.x_solver == "dct_pcg"
-    if dct and (tiled or spectral) and spectral_layout(ops) is not None:
+    packed = xla_packed_applies(ops, cfg)
+    if packed and cfg.spectral_cg and (tiled or spectral):
         return _solve_tiled(ops, counts, cbar, b, rho, x0, cfg, counts_blocked, rhs_parts,
                             kernel=tiled)
     if b is None:
@@ -418,4 +472,6 @@ def solve_x(ops: Operators, counts: torch.Tensor, cbar: torch.Tensor,
     if kind == "spectral":
         return _solve_tiled(ops, counts, cbar, b, rho, x0, cfg, counts_blocked, None,
                             kernel=False)
+    if kind == "natural" or (packed and (tiled or spectral)):
+        return _solve_natural(ops, counts, cbar, b, rho, x0, cfg, tiled)
     return _solve_plain(ops, counts, cbar, b, rho, x0, cfg, tiled)

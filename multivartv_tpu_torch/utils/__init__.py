@@ -1,1 +1,3 @@
-"""Utilities of the port: logging."""
+"""Utilities of the port: logging, metrics, checkpoints, profiling and the
+roofline model."""
+from multivartv_tpu_torch.utils.metrics import mse

@@ -1,0 +1,79 @@
+"""Profiling and timing hooks.
+
+Counterpart of ``multivartv_tpu/utils/profiling.py``: a profiler trace
+context, a steady-state iterations/s measurement and a host-side phase
+timer.  The JAX package traces with jax.profiler for TensorBoard; here
+``trace`` runs torch.profiler over the CPU and, where a card is present,
+CUDA, and writes a Chrome trace (chrome://tracing, Perfetto).  CUDA calls
+return before the card finishes, so every clock read here follows a
+``torch.cuda.synchronize()`` where CUDA is initialised.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from typing import Callable
+
+import torch
+
+
+def _sync() -> None:
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """torch.profiler over the enclosed block, written on exit as
+    ``<log_dir>/trace.json`` (a Chrome trace).  Yields the profiler, whose
+    ``key_averages()`` sums the time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        try:
+            yield prof
+        finally:
+            _sync()
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def measure_iterations_per_s(run_fixed: Callable[[object, int], object], state0,
+                             warmup: int = 20, iters: int = 200) -> float:
+    """iters / seconds of run_fixed(state, iters) after run_fixed(state0,
+    warmup); run_fixed(state, k) runs k iterations from state and returns
+    the new state.  The clock is read after a CUDA synchronize, so the
+    time is the device's finish, not the host's enqueue."""
+    state = run_fixed(state0, warmup)
+    _sync()
+    t0 = time.perf_counter()
+    run_fixed(state, iters)
+    _sync()
+    return iters / (time.perf_counter() - t0)
+
+
+class StepTimer:
+    """Host-side accumulating timer of named phases (synchronizing CUDA at
+    each phase's ends)."""
+
+    def __init__(self):
+        self.totals = {}
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        _sync()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            _sync()
+            self.totals[name] = self.totals.get(name, 0.0) + (time.perf_counter() - t0)
+
+    def report(self) -> str:
+        total = sum(self.totals.values()) or 1.0
+        return "\n".join(f"{k:24s} {v:8.3f}s ({100 * v / total:5.1f}%)"
+                         for k, v in sorted(self.totals.items(), key=lambda kv: -kv[1]))

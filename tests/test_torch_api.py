@@ -144,9 +144,17 @@ def test_predict_matches_jax(fits):
 
 
 def test_import_does_not_import_jax():
-    code = ("import sys, multivartv_tpu_torch, multivartv_tpu_torch.convert, "
+    """Importing the package and its modules imports no jax; the package
+    and plotting.py import no matplotlib (the card's machine has none)."""
+    code = ("import sys, multivartv_tpu_torch; "
+            "assert 'matplotlib' not in sys.modules; "
+            "import multivartv_tpu_torch.convert, "
             "multivartv_tpu_torch.ops.kernels, multivartv_tpu_torch.solver.cv, "
-            "multivartv_tpu_torch.solver.batch, multivartv_tpu_torch.utils.logging; "
+            "multivartv_tpu_torch.solver.batch, multivartv_tpu_torch.utils.logging, "
+            "multivartv_tpu_torch.plotting, multivartv_tpu_torch.solver.path, "
+            "multivartv_tpu_torch.utils.checkpoint, multivartv_tpu_torch.utils.metrics, "
+            "multivartv_tpu_torch.utils.profiling, multivartv_tpu_torch.utils.roofline; "
+            "assert 'matplotlib' not in sys.modules; "
             "assert 'jax' not in sys.modules, [m for m in sys.modules if 'jax' in m]")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 

@@ -135,8 +135,11 @@ def test_predict_matches_jax(jax_fits, port_fits):
     got = pm.predict(xq, mesh=pm.mesh)
     assert np.mean(got != np.asarray(jm_same.predict(xq, mesh=np.asarray(jm.mesh)))) <= 1e-3
     assert np.mean(got != pm.predict(xq)) <= 1e-3     # the mesh is the lattice itself
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        pm.plot()
+    from matplotlib.figure import Figure
+    import matplotlib.pyplot as plt
+    for fig in (pm.plot(), pm.plot(lam=float(pm.lambdas[1])), pm.plot_residuals()):
+        assert isinstance(fig, Figure) and fig.axes
+        plt.close(fig)
 
 
 def univariate(n, seed=1):
