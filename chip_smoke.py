@@ -62,7 +62,19 @@ xla_packed=False against the exact route after the same iterations and
 spectral_cg=False against it after a capped mvtv_one, B10 timed at 2048^2;
 then solve_path_checkpointed at 316^2 resumed from a manifest inside a
 chunk against one uninterrupted path, and tv_penalty against a float64
-sum.  The bounds come from multivartv_tpu_torch/utils/roofline.py.
+sum.  Phase 23 drives the sharded fit at p = 3 and p = 1 on a row group of
+one NCCL rank: mvtv_sharded at 256^3 (folds 1) through B12s and B13s, the
+plane-slab modes of B12 and B13, against the exact-f32 route's cold solve,
+at 256 x 256 x 64 (folds 2) against the single-card mvtv's tie set, and on
+the fused lasso at N = 2^20 and 1e5 through T1 against the tridiag route,
+each solve capped on both sides; then the shard route's ms per iteration
+beside the single-card routes.  Phase 3 also holds B12s and B13s on plane
+cuts of 256 x 256 x 64 (one-plane slabs included) against their plain
+versions and the whole-lattice B12 and B13, and the p = 1 partition solve
+(T1's segment mode and the finish kernel on 4 segments of a 2^20 chain,
+one without counts, and on 16 even ones) against T1 on the whole chain.
+The bounds come from
+multivartv_tpu_torch/utils/roofline.py.
 It shows through the launch counters that the paths ran every kernel,
 measures the device-memory ceiling with a streaming-copy probe, times each
 kernel beside its plain version and its bound (B3-B5 also with their
@@ -83,7 +95,8 @@ exits non-zero at once.  It imports nothing of JAX.  Phases: 1 device,
 15 the profiles' and x-update routes' fits, 16 the sharded path and the
 repaired routes, 17 the row-slab kernels' timing, 20 the p = 1 path and
 user meshes, 21 T1's timing and the fused-lasso iteration, 22 the x-update
-arms, the resumed lambda path and tv_penalty.
+arms, the resumed lambda path and tv_penalty, 23 the sharded fit at p = 3
+and p = 1.
 Phase 11, run only when listed, re-solves the start of phase 9's 2048^2
 path at a tighter tolerance on both routes (the witness for that phase's
 gate); phase 14, run only when listed, runs the 4096^2 fits of phase 9
@@ -110,6 +123,7 @@ phase header carries the seconds since the start.
     python3 chip_smoke.py --phases 1,2,19     # kernels at their launch sizes
     python3 chip_smoke.py --phases 1,2,20,21  # the p = 1 path, meshes, T1's timing
     python3 chip_smoke.py --phases 1,2,22     # the x-update arms, the resumed path
+    python3 chip_smoke.py --phases 1,2,23     # the sharded fit at p = 3 and p = 1
 """
 
 from __future__ import annotations
@@ -1027,8 +1041,10 @@ def phase_kernels(device, timed):
         compare_tiled(name, device, errs)
     compare_tiled3(device, errs)
     compare_shard(device, errs)
+    compare_shard3(device, errs)
     probe_dual_struct(device, errs, timed)
     compare_tridiag(device, errs)
+    compare_partition(device, errs)
     return errs
 
 
@@ -3448,16 +3464,18 @@ def tridiag_inputs(n: int, seed: int, device):
             torch.as_tensor(rng.randn(n).astype(np.float32), device=device))
 
 
-def banded64(counts, b, g) -> np.ndarray:
-    """The float64 solution of (diag(counts) + g T) x = b (scipy), a
-    reading beside the gate."""
+def banded64(counts, b, g, open_lo: bool = False, open_hi: bool = False) -> np.ndarray:
+    """The float64 solution of (diag(counts) + g T) x = b (scipy), T's
+    diagonal kept at 2 at an open end (a segment inside a longer chain); b
+    of shape (n,) or (k, n), x of the same shape."""
     import scipy.linalg
     c = counts.double().cpu().numpy()
     n = len(c)
     ab = np.zeros((3, n))
     ab[0, 1:] = ab[2, :-1] = -g
-    ab[1] = c + g * (2.0 - (np.arange(n) == 0) - (np.arange(n) == n - 1))
-    return scipy.linalg.solve_banded((1, 1), ab, b.double().cpu().numpy())
+    ab[1] = c + g * (2.0 - (np.arange(n) == 0) * (not open_lo)
+                     - (np.arange(n) == n - 1) * (not open_hi))
+    return scipy.linalg.solve_banded((1, 1), ab, b.double().cpu().numpy().T).T
 
 
 def t1_route(n: int) -> str:
@@ -4072,6 +4090,511 @@ def check_resumed_path(device):
         f"{resumed.iters.tolist()} [{GPU_LINE}]")
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the sharded fit at p = 3 (plane slabs: B12s, B13s) and p = 1
+# (chain segments: T1), on a group of one NCCL rank; phase 3's checks of the
+# slab modes and of the partition solve on emulated cuts
+# ---------------------------------------------------------------------------
+
+SHARD3 = ("dual_update_tiled_3d_shard", "gram_residual_tiled_3d_shard",
+          "gram_matvec_tiled_3d_shard")
+# Phase 23's fits: mvtv_sharded at 256^3 (folds 1) and 256 x 256 x 64
+# (folds 2) on CUBES' data, SHARD3_LAMBDAS lambdas each; at p = 1 the fused
+# lasso (m = N, mesh = sorted x) at N = 2^20 (folds 1) and N = 1e5 (folds
+# 2), 5 lambdas each.  Every solve of a fit and of the fit it is compared
+# with stops at the same cap (SHARD3_CAP, SHARD1_CAP): the shard route's
+# p = 3 x-update is the exact float32 PCG (about 100 ms an iteration at
+# 256^3), and uncapped the 256^3 path alone would take minutes.
+SHARD3_FIT1, SHARD3_FIT2 = "256^3 n=2^22", "256x256x64 n=2^22"
+SHARD3_LAMBDAS = 3
+SHARD3_CAP = 60
+SHARD1_FITS = ((FUSED_ONE, 1), (100_000, 2))
+SHARD1_LAMBDAS = 5
+SHARD1_CAP = 1000
+# The plane cuts of phase 3's slab checks on PATH3 (256 x 256 x 64, axis 0
+# cut): np.array_split's three, one-plane slabs inside and at both edges,
+# and the one-rank slab (the main path's: halos zero, bit for bit against
+# B12 and B13).
+SHARD3_CUTS = (tuple(len(a) for a in np.array_split(np.arange(256), 3)), (127, 1, 128),
+               (1, 254, 1), (256,))
+# The partition solve's segments of a 2^20 chain, the second's counts all
+# zero (a short stretch: hundreds of empty knots in a row leave float32 no
+# digits of the solution, JAX's solve included, tests/test_torch_shard3d.py).
+# The third's length is odd, so its solution rows 1 and 2 and the fourth's
+# inputs lie off 16 bytes (T1's scalar loads and stores).
+PARTITION_CUTS = (400_000, 32, 300_001, FUSED_ONE - 700_033)
+PARTITION_TOL = 1e-5
+# The finish kernel against its plain version: the banded and the dense
+# float64 solves round differently, and a coupling may round to float32 one
+# ulp apart.
+FINISH_TOL = 1e-6
+# admm_fixed_iterations per timed run of phase 23's iterations.
+SHARD3_ITERS, SHARD1_ITERS = 3, 50
+
+
+def plane_halos(xs, lo: int, hi: int):
+    """(tops, bots): the plane below and above the plane slab lo .. hi - 1
+    of each lattice of xs, zeros at the global edges."""
+    import torch
+    tops, bots = [], []
+    for x in xs:
+        z = torch.zeros((1,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+        tops.append(x[lo - 1:lo] if lo > 0 else z)
+        bots.append(x[hi:hi + 1] if hi < x.shape[0] else z)
+    return tops, bots
+
+
+def compare_shard3(device, errs):
+    """B12s (both compiled flag pairs, and with true_m one plane and row
+    short) and B13s (fused, b given, matvec) on the plane cuts SHARD3_CUTS
+    of PATH3's warm tiled3 state, each slab with its halo planes cut from
+    its neighbours: each slab against its plain version (1e-5 x max(1,
+    |ref|)), the slabs together against the whole-lattice B12 and B13
+    (SHARD_ELEMENT_TOL of max|x|, the matvec against -B13 with b = 0; the
+    Boyd sums SHARD_STATS_TOL relative), and the one-rank slab against
+    them bit for bit; records the largest absolute errors against the plain
+    versions in errs."""
+    import torch
+    from multivartv_tpu_torch.ops import kernels as K
+
+    I = cube_inputs(PATH3, device)
+    ops, pr, s, m = I["ops"], I["problem"], I["s"], I["m"]
+    sc, kappa, rho, us = ops.scales, I["lam"] / s.rho, s.rho, s.u_scale
+
+    def note(kernel, got, ref):
+        e = max(float((g.double() - r.double()).abs().max()) for g, r in zip(got, ref))
+        errs[kernel] = max(errs.get(kernel, 0.0), e)
+        return max(rel_err(g, r) for g, r in zip(got, ref))
+
+    for cut in SHARD3_CUTS:
+        tag = f"{PATH3} in plane slabs {cut}"
+        bounds = np.cumsum((0,) + cut).tolist()
+        slabs = list(zip(bounds[:-1], bounds[1:]))
+        for tm, (want_adj, want_alpha) in ((None, (True, False)), (None, (False, True)),
+                                           ((m[0] - 1, m[1] - 1, m[2]), (True, False))):
+            whole = K.dual_update_tiled_3d(s.theta, s.u, kappa, sc, us, tm, want_adj, want_alpha)
+            lat_w = (*(whole[0] or ()), *whole[1], *whole[3:])
+            got, stats, worst = [], 0.0, 0.0
+            for r, (lo, hi) in enumerate(slabs):
+                tops, bots = plane_halos((s.theta, *s.u), lo, hi)
+                args = (s.theta[lo:hi], tuple(w[lo:hi] for w in s.u), tops, bots, lo, m[0],
+                        kappa, sc, us, tm, want_adj, want_alpha)
+                k_out = K.dual_update_tiled_3d_shard(*args)
+                p_out = K.dual_update_tiled_3d_shard_reference(*args)
+                torch.cuda.synchronize()
+                lat_k = (*(k_out[0] or ()), *k_out[1], *k_out[3:])
+                lat_p = (*(p_out[0] or ()), *p_out[1], *p_out[3:])
+                worst = max(worst, note("dual_update_tiled_3d_shard", lat_k, lat_p))
+                check(torch.allclose(k_out[2].double(), p_out[2].double(), rtol=1e-4, atol=0),
+                      f"dual_update_tiled_3d_shard {tag} slab {r} true_m={tm}: stats vs plain "
+                      "(rtol 1e-4)")
+                got.append(lat_k)
+                stats = stats + k_out[2].double()
+                del p_out, lat_p
+            label = f"dual_update_tiled_3d_shard true_m={tm} want_adjoints={want_adj}"
+            check(worst <= 1e-5, f"{label} {tag}: each slab vs its plain version, max err "
+                  f"{worst:.3e} <= 1e-5 x max(1, |ref|)")
+            e = max(rel_max(torch.cat(g), w) for g, w in zip(zip(*got), lat_w))
+            same = all(torch.equal(torch.cat(g), w) for g, w in zip(zip(*got), lat_w))
+            check(e <= SHARD_ELEMENT_TOL, f"{label} {tag}: slabs together vs B12, max err "
+                  f"{e:.3e} <= {SHARD_ELEMENT_TOL:g} x max|x| (equal bit for bit: {same})")
+            e = float(((stats - whole[2].double()).abs() / whole[2].double().abs()).max())
+            check(e <= SHARD_STATS_TOL, f"{label} {tag}: the slabs' Boyd sums vs B12's, rel "
+                  f"{e:.3e} <= {SHARD_STATS_TOL:g}")
+            if len(slabs) == 1:
+                check(same and torch.equal(k_out[2], whole[2]), f"{label} {tag}: the one-rank "
+                      "slab equals B12 bit for bit (every array and the five sums)")
+            del whole, lat_w, got, k_out
+
+        b = pr.oty + rho * (s.dta + us * s.dtu)
+        zero = torch.zeros_like(b)
+        for label, bb, fused in (("fused rhs", None, True), ("b given", b, False),
+                                 ("matvec", zero, False)):
+            parts = (pr.oty, s.dta, us, s.dtu) if fused else None
+            whole = K.gram_residual_tiled_3d(bb, s.theta, pr.counts, rho, sc, rhs_parts=parts)
+            if label == "matvec":
+                whole = -whole
+            got, worst = [], 0.0
+            for r, (lo, hi) in enumerate(slabs):
+                (top,), (bot,) = plane_halos((s.theta,), lo, hi)
+                if label == "matvec":
+                    args = (s.theta[lo:hi], top, bot, lo, m[0], pr.counts[lo:hi], rho, sc)
+                    k_out = K.gram_matvec_tiled_3d_shard(*args)
+                    p_out = K.gram_matvec_tiled_3d_shard_reference(*args)
+                else:
+                    rp = (pr.oty[lo:hi], s.dta[lo:hi], us, s.dtu[lo:hi]) if fused else None
+                    args = (None if fused else bb[lo:hi], s.theta[lo:hi], top, bot, lo, m[0],
+                            pr.counts[lo:hi], rho, sc)
+                    k_out = K.gram_residual_tiled_3d_shard(*args, rhs_parts=rp)
+                    p_out = K.gram_residual_tiled_3d_shard_reference(*args, rhs_parts=rp)
+                torch.cuda.synchronize()
+                name = ("gram_matvec_tiled_3d_shard" if label == "matvec"
+                        else "gram_residual_tiled_3d_shard")
+                worst = max(worst, note(name, [k_out], [p_out]))
+                got.append(k_out)
+            check(worst <= 1e-5, f"{name} ({label}) {tag}: each slab vs its plain version, "
+                  f"max err {worst:.3e} <= 1e-5 x max(1, |ref|)")
+            cat = torch.cat(got)
+            e, same = rel_max(cat, whole), torch.equal(cat, whole)
+            check(e <= SHARD_ELEMENT_TOL, f"{name} ({label}) {tag}: slabs together vs B13, max "
+                  f"err {e:.3e} <= {SHARD_ELEMENT_TOL:g} x max|x| (equal bit for bit: {same})")
+            if len(slabs) == 1 and label != "matvec":
+                check(same, f"{name} ({label}) {tag}: the one-rank slab equals B13 bit for bit")
+            del whole, got, cat
+        del b, zero
+    del I, s
+    torch.cuda.empty_cache()
+
+
+def compare_partition(device, errs):
+    """The p = 1 partition solve emulated in one process on the segments
+    PARTITION_CUTS of a 2^20 chain (the second's counts all zero) and on
+    16 even ones: T1's segment mode on each against its plain version on
+    the first cut, and against each segment's float64 solution on the
+    second (T1_TOL of max|reference|: there the segment holding the empty
+    stretch leaves the plain cyclic reduction 5.7e-6 from the float64
+    solution, which is printed beside), the finish kernel on each rank
+    against its plain version (FINISH_TOL of max|plain|; run with torch's
+    sync check on: nothing goes to the host), and the whole against T1 on
+    the whole chain (PARTITION_TOL of max|x|); the float64 solution's
+    distance printed beside."""
+    import torch
+    from multivartv_tpu_torch.ops import kernels as K
+    from multivartv_tpu_torch.solver import tridiag
+
+    n, sc = FUSED_ONE, 1.3
+    counts, b = tridiag_inputs(n, 41, device)
+    counts[PARTITION_CUTS[0]:PARTITION_CUTS[0] + PARTITION_CUTS[1]] = 0.0
+    rho = torch.tensor(0.7 / (sc * sc), dtype=torch.float32, device=device)
+    g = float(np.float32(np.float32(0.7 / (sc * sc)) * np.float32(sc)) * np.float32(sc))
+    whole = K.xupdate_tridiag(counts, b, rho, sc)
+    x64 = banded64(counts, b, g)
+    s64 = float(np.abs(x64).max())
+    e_w = float(np.abs(whole.double().cpu().numpy() - x64).max()) / s64
+    even = tuple(len(a) for a in np.array_split(np.arange(n), 16))
+    for cuts in (PARTITION_CUTS, even):
+        lo, ends, ylrs, worst, plain64 = 0, [], [], 0.0, 0.0
+        for r in cuts:
+            hi = lo + r
+            args = (counts[lo:hi].contiguous(), b[lo:hi].contiguous(), rho, sc, lo > 0, hi < n)
+            ylr = K.xupdate_tridiag_segment(*args)
+            ref = K.xupdate_tridiag_segment_reference(*args)
+            torch.cuda.synchronize()
+            for k in range(3):
+                errs["xupdate_tridiag_segment"] = max(errs.get("xupdate_tridiag_segment", 0.0),
+                                                      float((ylr[k] - ref[k]).abs().max()))
+            if cuts is PARTITION_CUTS:
+                want = ref.double().cpu().numpy()
+            else:
+                rhs = torch.zeros((3, r), dtype=torch.float64)
+                rhs[0], rhs[1, 0], rhs[2, -1] = b[lo:hi].double().cpu(), 1.0, 1.0
+                want = banded64(counts[lo:hi], rhs, g, lo > 0, hi < n)
+                for k in range(3):
+                    plain64 = max(plain64, float(np.abs(ref[k].double().cpu().numpy() - want[k])
+                                                 .max() / np.abs(want[k]).max()))
+            got_np = ylr.double().cpu().numpy()
+            for k in range(3):
+                worst = max(worst, float(np.abs(got_np[k] - want[k]).max()
+                                         / np.abs(want[k]).max()))
+            ylrs.append(ylr)
+            ends.append(torch.cat([tridiag.segment_ends(ylr), rho.reshape(1)]))
+            lo = hi
+        w = len(cuts)
+        vs = ("its plain version" if cuts is PARTITION_CUTS else
+              f"the segment's float64 solution (the plain version's distance {plain64:.2e})")
+        check(worst <= T1_TOL, f"xupdate_tridiag_segment on {w} segments of 2^20: each of "
+              f"the three solves vs {vs}, max err {worst:.3e} <= {T1_TOL:g} x max|reference|")
+        every = torch.stack(ends)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            parts = [K.partition_finish(every, k, sc, y) for k, y in enumerate(ylrs)]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        worst = 0.0
+        for k, (y, got_k) in enumerate(zip(ylrs, parts)):
+            ref = K.partition_finish_reference(every, k, sc, y)
+            d = float((got_k - ref).abs().max())
+            worst = max(worst, d / float(ref.abs().max()))
+            errs["partition_finish"] = max(errs.get("partition_finish", 0.0), d)
+        check(worst <= FINISH_TOL, f"partition_finish on each of {w} ranks (no host sync) vs "
+              f"its plain version (dense float64 solve): max err {worst:.3e} <= {FINISH_TOL:g} "
+              "x max|plain|")
+        got = torch.cat(parts)
+        e = float((got - whole).abs().max() / whole.abs().max())
+        e_p = float(np.abs(got.double().cpu().numpy() - x64).max()) / s64
+        check(e <= PARTITION_TOL and bool(torch.isfinite(got).all()),
+              f"the partition solve on {w} segments of 2^20"
+              f"{' (one with no counts)' if cuts is PARTITION_CUTS else ''} vs T1 on the whole "
+              f"chain: max err {e:.3e} <= {PARTITION_TOL:g} x max|x| (float64 solution: "
+              f"partition {e_p:.2e}, T1 {e_w:.2e})")
+        del ylrs, parts, got, every, ends
+    del counts, b, whole
+
+
+def shard_inputs(x, y, m, mesh, device, group, **cfg):
+    """(operators, problem, config) of mvtv_sharded's solves on a row group:
+    the shard route's slab of the whole set-up."""
+    from multivartv_tpu_torch.api import _setup
+    from multivartv_tpu_torch.config import DEFAULT_MESH, SolverConfig
+    from multivartv_tpu_torch.parallel import fit as pfit
+    from multivartv_tpu_torch.parallel.sharding import RowSlab, shard_problem
+
+    scfg = pfit._sharded_solver_config(SolverConfig(**cfg), group)
+    setup = _setup(x, y, m, mesh, scfg, DEFAULT_MESH, device)
+    slab = RowSlab(group, setup[2].m)
+    return pfit.shard_operators(setup[5], slab), shard_problem(setup[6], slab), scfg
+
+
+def time_iterations(label, ops, pr, lam, cfg, n_it):
+    """ms per ADMM iteration of a route (admm_fixed_iterations from the
+    initial state, CUDA events, the smaller of two runs) and its profile:
+    device ms by kernel group, idle share."""
+    import torch
+    from multivartv_tpu_torch.solver import admm
+
+    lam_t = torch.tensor(lam, dtype=torch.float32, device=pr.oty.device)
+    state0 = admm.initial_state(ops, pr, lam_t / 5)
+
+    def run():
+        return admm.admm_fixed_iterations(ops, pr, lam_t, state0, cfg, n_it)
+
+    ms = min(cuda_time_ms(run, 1, warmup=1), cuda_time_ms(run, 1, warmup=0)) / n_it
+    log(f"  {label} ({admm.solve_route(ops, cfg)} route): {ms:.3f} ms per iteration "
+        f"(admm_fixed_iterations, {n_it} iterations) [{GPU_LINE}]")
+    profile_iterations(label, run, n_it, ms)
+    return ms
+
+
+def phase_sharded3(device):
+    """Phase 23, the seventh main path, under the launch counters: the
+    sharded fit at p = 3 and p = 1 on one card, a row group of one NCCL
+    rank (as phase 16's): mvtv_sharded(folds=1, SHARD3_LAMBDAS lambdas) at
+    256^3 through B12s and B13s (the whole-lattice B12 and B13 not
+    launched), its objective at the chosen lambda no worse than the
+    exact-f32 route's cold solve from the same start by LARGE_GAP;
+    mvtv_sharded(folds=2) at 256 x 256 x 64, its chosen index in the tie set
+    (MVTV_TIE3, C3's for this lattice and data) of the single-card
+    mvtv(folds=2, vmap_folds=False) on the same grid; mvtv_sharded on the
+    fused lasso at N = 2^20 (folds 1) against the "tridiag" route's cold
+    solve at the chosen lambda (mvtv_one's solve, one-sided LARGE_GAP) and
+    at N = 1e5 (folds 2) against the single-card mvtv's tie set (MVTV_TIE),
+    both through T1; every solve on both sides capped (SHARD3_CAP,
+    SHARD1_CAP).  Then, launches not counted, ms per iteration of the
+    shard route at 256^3 and 2^20 beside the single-card tiled3 and tridiag
+    routes with the device's idle share (T1 once per iteration on the
+    group of one), and B12s, B13s (fused, as the route calls it), its
+    matvec and T1's segment mode beside their plain versions.  Returns
+    (launches, {kernel: (ms, plain_ms, m, bound kwargs)})."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from multivartv_tpu_torch import CVConfig, SolverConfig, mvtv
+    from multivartv_tpu_torch.api import _fresh_solve, _setup
+    from multivartv_tpu_torch.config import DEFAULT_MESH
+    from multivartv_tpu_torch.ops import kernels as K
+    from multivartv_tpu_torch.parallel import distributed
+    from multivartv_tpu_torch.parallel import fit as pfit
+    from multivartv_tpu_torch.parallel.sharding import make_device_mesh
+
+    log("phase 23: the sharded fit at p = 3 (plane slabs) and p = 1 (chain segments) on one "
+        "card (a row group of one NCCL rank), counters reset")
+    t_phase = time.perf_counter()
+    cap3, cap1 = SolverConfig(max_iters=SHARD3_CAP), SolverConfig(max_iters=SHARD1_CAP)
+    fits3 = {name: (CUBES[name][0](), CUBES[name][1]) for name in (SHARD3_FIT1, SHARD3_FIT2)}
+    fits1 = {n: fused_lasso_data(n) for n, _ in SHARD1_FITS}
+    models, seconds, used = {}, {}, {}
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.init_distributed(f"file://{tmp}/store", world_size=1, rank=0, device=device)
+        try:
+            group = make_device_mesh()
+            K.reset_launch_counts()
+            runs = [(SHARD3_FIT1, fits3[SHARD3_FIT1], 1, SHARD3_LAMBDAS, None, cap3),
+                    (SHARD3_FIT2, fits3[SHARD3_FIT2], 2, SHARD3_LAMBDAS, None, cap3)]
+            runs += [(f"fused lasso N={n}", (fits1[n], (n,)), folds, SHARD1_LAMBDAS,
+                      fits1[n][0][:, None], cap1) for n, folds in SHARD1_FITS]
+            for label, ((x, y), m), folds, n_lambda, mesh, cfg in runs:
+                before = dict(K.launch_counts)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                models[label] = pfit.mvtv_sharded(x, y, m=m, mesh=mesh, folds=folds,
+                                                  n_lambda=n_lambda, solver_config=cfg,
+                                                  device=device)
+                torch.cuda.synchronize()
+                seconds[label] = time.perf_counter() - t0
+                used[label] = {k: K.launch_counts[k] - before[k] for k in K.KERNELS
+                               if K.launch_counts[k] != before[k]}
+                mdl = models[label]
+                log(f"  mvtv_sharded {label} folds={folds} n_lambda={n_lambda} (cap "
+                    f"{cfg.max_iters}): {seconds[label]:.2f} s [{GPU_LINE}], chosen index "
+                    f"{mdl.lambda_minmse_ind}, iterations per lambda "
+                    f"{[mm['iters'] for mm in mdl.models]}, CV curve "
+                    f"{[float(f'{v:.8g}') for v in mdl.cv_mses]}, launches {used[label]}")
+            launches = dict(K.launch_counts)
+
+            log("phase 23: ms per iteration, the shard route beside the single-card routes")
+            (x, y), m = fits3[SHARD3_FIT1]
+            ops, pr, scfg = shard_inputs(x, y, m, None, device, group)
+            times["iter shard 256^3"] = time_iterations(f"{SHARD3_FIT1} sharded (one rank)", ops,
+                                                        pr, 0.05, scfg, SHARD3_ITERS)
+            del ops, pr
+            _, _, _, _, _, ops, pr = _setup(x, y, m, None, SolverConfig(), DEFAULT_MESH, device)
+            times["iter tiled3 256^3"] = time_iterations(f"{SHARD3_FIT1} single card", ops, pr,
+                                                         0.05, SolverConfig(), SHARD3_ITERS)
+            del ops, pr
+            n1 = FUSED_ONE
+            (x, y) = fits1[n1]
+            ops, pr, scfg = shard_inputs(x, y, (n1,), x[:, None], device, group)
+            before = dict(K.launch_counts)
+            times["iter shard 2^20"] = time_iterations("fused lasso N=2^20 sharded (one rank)",
+                                                       ops, pr, 1.0, scfg, SHARD1_ITERS)
+            t1_calls = K.launch_counts["xupdate_tridiag"] - before["xupdate_tridiag"]
+            seg_calls = (K.launch_counts["xupdate_tridiag_segment"]
+                         - before["xupdate_tridiag_segment"])
+            runs_made = t1_calls // SHARD1_ITERS
+            check(t1_calls == runs_made * SHARD1_ITERS and runs_made >= 2 and seg_calls == 0,
+                  f"fused lasso N=2^20 on the shard route (one rank): T1 launched once per "
+                  f"iteration ({t1_calls} in {runs_made} runs of {SHARD1_ITERS}), its segment "
+                  f"mode never ({seg_calls})")
+            del ops, pr
+            _, _, _, _, _, ops, pr = _setup(x, y, (n1,), x[:, None], SolverConfig(),
+                                            DEFAULT_MESH, device)
+            times["iter tridiag 2^20"] = time_iterations("fused lasso N=2^20 single card", ops,
+                                                         pr, 1.0, SolverConfig(), SHARD1_ITERS)
+            del ops, pr
+        finally:
+            dist.destroy_process_group()
+    log(f"  shard route / single-card route per iteration: 256^3 "
+        f"{times['iter shard 256^3'] / times['iter tiled3 256^3']:.2f}x, N=2^20 "
+        f"{times['iter shard 2^20'] / times['iter tridiag 2^20']:.2f}x [{GPU_LINE}]")
+
+    log("phase 23: the fits against their single-card comparisons (the same caps)")
+    l3a, l3b = SHARD3_FIT1, SHARD3_FIT2
+    ua = used[l3a]
+    for k in SHARD3:
+        check(launches[k] > 0, f"phase 23 launched {k} ({launches[k]} times)")
+    for k in SHARD3[:2]:
+        check(ua.get(k, 0) > 0, f"mvtv_sharded {l3a}: {k} launched ({ua.get(k, 0)} times)")
+    check(not ua.get("dual_update_tiled_3d") and not ua.get("gram_residual_tiled_3d"),
+          f"mvtv_sharded {l3a}: the whole-lattice B12 and B13 not launched "
+          f"({ua.get('dual_update_tiled_3d', 0)}, {ua.get('gram_residual_tiled_3d', 0)})")
+    for label, mdl in models.items():
+        check(bool(np.all(np.isfinite(mdl.theta_lattice)))
+              and bool(np.all(np.isfinite(mdl.cv_mses))), f"mvtv_sharded {label}: finite")
+
+    def cold(label, mesh, cfg):
+        """objective64 of a single-card cold solve at the fit's chosen
+        lambda from its start (rho0 = lambda_0 / 5), and the fit's own."""
+        mdl = models[label]
+        (x, y), m = (fits3[label] if label in fits3
+                     else (fits1[int(label.split("=")[1])], mdl.mesh_spec.m))
+        best = mdl.lambda_minmse_ind
+        _, _, spec, _, _, ops, problem = _setup(x, y, m, mesh, cfg, DEFAULT_MESH, device)
+        grid = torch.as_tensor(mdl.lambdas, device=device)
+        theta, fitted = _fresh_solve(ops, problem, grid[best], grid[0] / 5.0, cfg)
+        ref = objective64({"theta_lattice": theta.cpu().numpy(),
+                           "fitted": fitted.cpu().numpy(), "y": y, "mesh_spec": spec,
+                           "lambda": float(grid[best])})
+        return model_objective(mdl), ref
+
+    t0 = time.perf_counter()
+    obj, ref = cold(l3a, None, SolverConfig(use_kernels=False, max_iters=SHARD3_CAP))
+    gap = (obj - ref) / abs(ref)
+    log(f"  mvtv_sharded {l3a} at the chosen lambda: objective {obj:.9e} vs the exact route's "
+        f"cold solve {ref:.9e} ({time.perf_counter() - t0:.2f} s)")
+    check(gap <= LARGE_GAP, f"mvtv_sharded {l3a}: objective at the chosen lambda (shard - "
+          f"exact) / |exact| {gap:+.3e} <= {LARGE_GAP:g}")
+
+    def ties_of(label, cfg, tie, mesh=None):
+        mdl = models[label]
+        (x, y), m = (fits3[label] if label in fits3
+                     else (fits1[int(label.split("=")[1])], mdl.mesh_spec.m))
+        t0 = time.perf_counter()
+        single = mvtv(x, y, m=m, mesh=mesh, lambdas=mdl.lambdas, folds=2, device=device,
+                      solver_config=cfg, cv_config=CVConfig(folds=2, vmap_folds=False))
+        torch.cuda.synchronize()
+        cvm = np.asarray(single.cv_mses, np.float64)
+        ties = np.nonzero(cvm <= cvm.min() * (1 + tie))[0].tolist()
+        log(f"  single-card mvtv {label} folds=2 (vmap_folds=False, cap {cfg.max_iters}), same "
+            f"grid: {time.perf_counter() - t0:.2f} s, chosen index {single.lambda_minmse_ind}, "
+            f"tie set {ties}, CV curve {[float(f'{v:.8g}') for v in single.cv_mses]}")
+        check(mdl.lambda_minmse_ind in ties, f"mvtv_sharded {label} folds=2: chosen index "
+              f"{mdl.lambda_minmse_ind} in the single-card fit's tie set {ties} (CV MSE within "
+              f"{tie:g} of its minimum)")
+
+    ties_of(l3b, cap3, MVTV_TIE3)
+    (n_a, _), (n_b, _) = SHARD1_FITS
+    la, lb = f"fused lasso N={n_a}", f"fused lasso N={n_b}"
+    for label in (la, lb):
+        check(used[label].get("xupdate_tridiag", 0) > 0
+              and not used[label].get("xupdate_tridiag_segment")
+              and not used[label].get("partition_finish"),
+              f"mvtv_sharded {label}: T1 launched ({used[label].get('xupdate_tridiag', 0)} "
+              "times), on the whole chain of the group of one")
+    obj, ref = cold(la, fits1[n_a][0][:, None], cap1)
+    gap = (obj - ref) / abs(ref)
+    log(f"  mvtv_sharded {la} at the chosen lambda: objective {obj:.9e} vs the tridiag route's "
+        f"cold solve {ref:.9e}")
+    check(gap <= LARGE_GAP, f"mvtv_sharded {la}: objective at the chosen lambda (shard - "
+          f"tridiag) / |tridiag| {gap:+.3e} <= {LARGE_GAP:g}")
+    ties_of(lb, cap1, MVTV_TIE, mesh=fits1[n_b][0][:, None])
+
+    log("phase 23: B12s, B13s and T1's segment mode beside their plain versions")
+    I = cube_inputs(SHARD3_FIT1, device)
+    ops, pr, s, m = I["ops"], I["problem"], I["s"], I["m"]
+    sc, kappa = ops.scales, I["lam"] / s.rho
+    tops, bots = plane_halos((s.theta, *s.u), 0, m[0])
+    dual = (s.theta, s.u, tops, bots, 0, m[0], kappa, sc, s.u_scale, None, True, False)
+    parts = (pr.oty, s.dta, s.u_scale, s.dtu)
+    gram = (None, s.theta, tops[0], bots[0], 0, m[0], pr.counts, s.rho, sc)
+    mv = (s.theta, tops[0], bots[0], 0, m[0], pr.counts, s.rho, sc)
+    cases = {
+        "dual_update_tiled_3d_shard": (lambda: K.dual_update_tiled_3d_shard(*dual),
+                                       lambda: K.dual_update_tiled_3d_shard_reference(*dual),
+                                       {}),
+        "gram_residual_tiled_3d_shard": (
+            lambda: K.gram_residual_tiled_3d_shard(*gram, rhs_parts=parts),
+            lambda: K.gram_residual_tiled_3d_shard_reference(*gram, rhs_parts=parts),
+            {"fused": True}),
+        "gram_matvec_tiled_3d_shard": (lambda: K.gram_matvec_tiled_3d_shard(*mv),
+                                       lambda: K.gram_matvec_tiled_3d_shard_reference(*mv), {}),
+    }
+    for k, (kern, plain, kw) in cases.items():
+        p1 = cuda_time_ms(plain, 3)
+        k_ms = time_call(k, f"{'x'.join(map(str, m))} one-rank slab", kern, m, **kw)
+        p2 = cuda_time_ms(plain, 3)
+        times[k] = (k_ms, min(p1, p2), m, kw)
+        log(f"  {k}: plain {p1:.4f} / {p2:.4f} ms [{GPU_LINE}]")
+    del I, s, dual, gram, mv, parts, tops, bots
+    torch.cuda.empty_cache()
+    n_seg = FUSED_ONE // 4
+    counts, b = tridiag_inputs(n_seg, 43, device)
+    rho = torch.tensor(0.5, dtype=torch.float32, device=device)
+    seg = (counts, b, rho, 1.0, True, True)
+    p1 = cuda_time_ms(lambda: K.xupdate_tridiag_segment_reference(*seg), 3)
+    k_ms = time_call("xupdate_tridiag_segment", f"n={n_seg} (one of 4 segments of 2^20)",
+                     lambda: K.xupdate_tridiag_segment(*seg), (n_seg,), n=50)
+    p2 = cuda_time_ms(lambda: K.xupdate_tridiag_segment_reference(*seg), 3)
+    times["xupdate_tridiag_segment"] = (k_ms, min(p1, p2), (n_seg,), {})
+    log(f"  xupdate_tridiag_segment: plain {p1:.4f} / {p2:.4f} ms; T1 on the whole 2^20 chain "
+        f"for scale in phase 21 [{GPU_LINE}]")
+    ylr = K.xupdate_tridiag_segment(*seg)
+    every = torch.cat([torch.randn(4, 6, generator=torch.Generator().manual_seed(44)) * 0.1,
+                       torch.full((4, 1), 0.5)], 1).to(device)
+    fin = (every, 1, 1.0, ylr)
+    p1 = cuda_time_ms(lambda: K.partition_finish_reference(*fin), 3)
+    k_ms = time_call("partition_finish", f"n={n_seg}, rank 1 of 4",
+                     lambda: K.partition_finish(*fin), (n_seg,), n=50)
+    p2 = cuda_time_ms(lambda: K.partition_finish_reference(*fin), 3)
+    times["partition_finish"] = (k_ms, min(p1, p2), (n_seg,), {})
+    log(f"  partition_finish: plain (dense float64 solve_ex, back-substitution) {p1:.4f} / "
+        f"{p2:.4f} ms [{GPU_LINE}]")
+    log(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
+    return launches, {k: v for k, v in times.items() if not k.startswith("iter ")}
+
+
 SOURCES = {
     "dual_update_2d": ("multivartv_tpu_torch/csrc/dual.cu",
                        "multivartv_tpu/ops/pallas_kernels.py:262"),
@@ -4113,6 +4636,26 @@ SOURCES = {
     # T1 replaces no Pallas kernel: the JAX package's solve is XLA.
     "xupdate_tridiag": ("multivartv_tpu_torch/csrc/tridiag.cu",
                         "multivartv_tpu/solver/tridiag.py:208 (XLA, no Pallas kernel)"),
+    # The sharded p = 3 and p = 1 stages: XLA under SPMD in the JAX package.
+    "dual_update_tiled_3d_shard": ("multivartv_tpu_torch/csrc/tiled3.cu",
+                                   "none: XLA under SPMD in JAX (multivartv_tpu/parallel/fit.py"
+                                   ":256, the p = 3 dual stage)"),
+    "gram_residual_tiled_3d_shard": ("multivartv_tpu_torch/csrc/tiled3.cu",
+                                     "none: XLA under SPMD in JAX (multivartv_tpu/parallel/"
+                                     "fit.py:256, the p = 3 PCG's r0)"),
+    # B13s in its matvec mode: the sharded p = 3 PCG's matvec.
+    "gram_matvec_tiled_3d_shard": ("multivartv_tpu_torch/csrc/tiled3.cu",
+                                   "none: XLA under SPMD in JAX (multivartv_tpu/parallel/fit.py"
+                                   ":256, the p = 3 PCG's matvec)"),
+    # T1's segment mode, the partition solve across ranks (a group of more
+    # than one rank; none on one card).
+    "xupdate_tridiag_segment": ("multivartv_tpu_torch/csrc/tridiag.cu",
+                                "multivartv_tpu/solver/tridiag.py:208 under SPMD (XLA, no "
+                                "Pallas kernel)"),
+    # The partition solve's finish: the interface solve and back-substitution.
+    "partition_finish": ("multivartv_tpu_torch/csrc/tridiag.cu",
+                         "multivartv_tpu/solver/tridiag.py:208 under SPMD (XLA, no Pallas "
+                         "kernel)"),
 }
 # The lattices (and batch) at which phase 7 times the whole-lattice kernels;
 # B1's row is its 1023^2 time (phase_timing_slice), where its launches are.
@@ -4133,8 +4676,8 @@ def phase_mvtv_default(device):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,12,13,15,16,17,20,21,22",
-                    help="comma-separated phases to run (default: 1-10, 12, 13, 15-17, 20-22; "
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,12,13,15,16,17,20,21,22,23",
+                    help="comma-separated phases to run (default: 1-10, 12, 13, 15-17, 20-23; "
                     "11, 14, 18 and 19 only when listed)")
     phases = {int(v) for v in ap.parse_args(argv).phases.split(",")}
     phase_device()
@@ -4193,6 +4736,10 @@ def main(argv=None) -> int:
         launches_arms, times_arms = phase_arms(device)
         launches = {k: launches.get(k, 0) + launches_arms[k] for k in launches_arms}
         timed.update({k: (ms, plain, m, {}) for k, (ms, plain, m) in times_arms.items()})
+    if 23 in phases:
+        launches_s3, times_s3 = phase_sharded3(device)
+        launches = {k: launches.get(k, 0) + launches_s3[k] for k in launches_s3}
+        timed.update(times_s3)
     if 8 in phases:
         phase_mvtv_default(device)
     if 11 in phases:

@@ -9,7 +9,7 @@ never imports jax: only the numpy values cross.  The device defaults to
 "cuda", as the API's does, and raises without CUDA; pass ``device="cpu"``
 for the CPU.
 
-``slab_from_numpy`` cuts the three into one rank's row slab of a sharded
+``slab_from_numpy`` cuts the three into one rank's slab of a sharded
 fit (parallel/sharding.py), so that a test hands both packages the same
 inputs.
 
@@ -128,12 +128,13 @@ def state_from_numpy(*, theta, alpha: Sequence, u: Sequence, rho, counter=0,
 
 def slab_from_numpy(slab, operators: dict, problem: dict, state: Optional[dict] = None,
                     device="cuda"):
-    """(operators, problem, state) of one rank's row slab (a RowSlab) from
-    the JAX fields as numpy arrays, given as the keyword arguments of
-    operators_from_numpy, problem_from_numpy and state_from_numpy: lattice
-    arrays cut to the slab (gram_eigs to its column slab, as
-    parallel.fit.shard_operators cuts it), per-axis and per-sample arrays
-    and scalars whole; state None gives None."""
+    """(operators, problem, state) of one rank's slab (a RowSlab of a
+    lattice of p = 1, 2 or 3) from the JAX fields as numpy arrays, given as
+    the keyword arguments of operators_from_numpy, problem_from_numpy and
+    state_from_numpy: lattice arrays cut to the slab along axis 0
+    (gram_eigs to its pencil at p >= 2, as parallel.fit.shard_operators
+    cuts it), per-axis and per-sample arrays and scalars whole; state None
+    gives None."""
     from multivartv_tpu_torch.parallel.fit import shard_operators
     from multivartv_tpu_torch.parallel.sharding import shard_problem, shard_state
 

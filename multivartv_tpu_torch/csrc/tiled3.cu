@@ -1,5 +1,6 @@
 // The p = 3 stencil kernels of the tiled3 route (from 2^22 knots): B12,
-// B13, B14.
+// B13, B14; and B12s, B13s, the plane-slab modes of B12 and B13 on the
+// sharded route.
 //
 // Replace multivartv_tpu/ops/pallas_kernels.py:
 //   * dual_update_tiled_3d (B12, _tiled3_dual_kernel): the 7 forward
@@ -59,6 +60,21 @@
 // bytes per knot.  The scalars (kappa, rho, u_scale) stay on the device.
 // B14 (on no ADMM path) has no shared-memory tiling of the neighbourhood
 // yet.
+//
+// Slab modes (kSlab: B12s, B13s; the JAX package runs these stages under
+// its SPMD partitioner, with no Pallas kernel): the lattice is one rank's
+// plane slab, planes 0 .. m0 - 1 of a lattice of m0g planes whose plane 0
+// is global plane `off` (parallel/sharding.py).  The march is B12's or
+// B13's; only where a plane comes from changes: the plane below the slab
+// (local -1) and, for theta and v, the plane above it (local m0) come from
+// the halo planes the neighbouring ranks sent (Slab3; zeros at the global
+// edges), in place of the wrapped planes of the whole lattice, and every
+// mask reads the global plane, wrapped as the whole lattice's, so that the
+// lattice's edges stay where they are.  A wrapped plane only ever feeds
+// values that an edge mask zeroes (theta, v) or that the blocks' trailing
+// edges hold at zero (u), so on one slab with zero halos B12s and B13s
+// compute B12's and B13's outputs bit for bit.  B13 also gets a matvec
+// mode, (counts + rho D'D) v: the sharded PCG's matvec.
 #include "common.cuh"
 
 namespace mvtv {
@@ -71,6 +87,14 @@ struct Scales7 {
 };
 struct In7 {
   const float* p[7];
+};
+// A slab's halo planes (lo: the plane below, hi: the plane above; u_lo: the
+// u blocks' plane below, B12s only) and its place in the lattice.
+struct Slab3 {
+  const float* lo;
+  const float* hi;
+  In7 u_lo;
+  int off, m0g;
 };
 
 // fd_binaries(3, True) as bit masks, bit j = axis j: (1,1,1), (0,0,1),
@@ -266,12 +290,28 @@ __device__ __forceinline__ float achain12(const float* sv, int k, int pt) {
   return v[0];
 }
 
-template <bool kWantAlpha, bool kWantAdjoints>
+// Local plane j (-1 .. m0) of a lattice x: the wrapped plane of the whole
+// lattice, or in a slab the halo planes below and above it.
+template <bool kSlab>
+__device__ __forceinline__ const float* plane_at(const float* x, const float* lo,
+                                                 const float* hi, int j, Lat3 L) {
+  const size_t plane = size_t(L.m1) * L.m2;
+  if (kSlab) return j < 0 ? lo : (j >= L.m0 ? hi : x + size_t(j) * plane);
+  return x + size_t(wrap(j, L.m0)) * plane;
+}
+// The global plane of local plane j, wrapped as the whole lattice's, which
+// every mask reads.
+template <bool kSlab>
+__device__ __forceinline__ int global_plane(int j, Lat3 L, const Slab3& sl) {
+  return kSlab ? wrap(sl.off + j, sl.m0g) : wrap(j, L.m0);
+}
+
+template <bool kWantAlpha, bool kWantAdjoints, bool kSlab>
 __global__ void __launch_bounds__(kMarchThreads, 1)
 dual3_march_kernel(const float* __restrict__ theta, In7 u, const float* __restrict__ scal,
                    Scales7 sc, int t0, int t1, int t2, float* __restrict__ alpha,
                    float* __restrict__ u_new, float* __restrict__ dta, float* __restrict__ dtu,
-                   float* __restrict__ partials, Lat3 L) {
+                   float* __restrict__ partials, Lat3 L, Slab3 sl) {
   constexpr int NV = kWantAdjoints ? 3 : 2;
   extern __shared__ __align__(16) float smem[];
   float* th_s = smem;                // [3][kThPts]: theta planes, a ring
@@ -283,7 +323,7 @@ dual3_march_kernel(const float* __restrict__ theta, In7 u, const float* __restri
   const int c0 = blockIdx.z * kChunk, c1 = min(c0 + kChunk, L.m0);
   const int nsteps = c1 - c0 + 1;  // stage planes c0 - 1 .. c1 - 1
   const size_t plane = size_t(L.m1) * L.m2, n = plane * L.m0;
-  const int m[3] = {L.m0, L.m1, L.m2};
+  const int m[3] = {kSlab ? sl.m0g : L.m0, L.m1, L.m2};
   const int tm[3] = {t0, t1, t2};
   const float kappa = scal[S_KAPPA], us = scal[S_USCALE];
 
@@ -307,7 +347,7 @@ dual3_march_kernel(const float* __restrict__ theta, In7 u, const float* __restri
   const int q = l1 * kTh2 + l2;  // the stage point's theta
   // theta plane c0 - 1 + j into ring slot j % 3; u plane c0 - 1 + s into s % 2.
   auto load_theta = [&](int j) {
-    const float* src = theta + size_t(wrap(c0 - 1 + j, L.m0)) * plane;
+    const float* src = plane_at<kSlab>(theta, sl.lo, sl.hi, c0 - 1 + j, L);
     float* dst = th_s + (j % 3) * kThPts;
 #pragma unroll
     for (int i = 0; i < kThPerThread; ++i)
@@ -315,10 +355,11 @@ dual3_march_kernel(const float* __restrict__ theta, In7 u, const float* __restri
   };
   auto load_u = [&](int s) {
     if (!pt_in) return;
-    const size_t po = size_t(wrap(c0 - 1 + s, L.m0)) * plane + pt_off;
     float* dst = u_s + (s & 1) * 7 * kPts + tid;
 #pragma unroll
-    for (int b = 0; b < 7; ++b) cp_async4(dst + b * kPts, u.p[b] + po);
+    for (int b = 0; b < 7; ++b)
+      cp_async4(dst + b * kPts, plane_at<kSlab>(u.p[b], sl.u_lo.p[b], nullptr, c0 - 1 + s, L) +
+                                    pt_off);
   };
   load_theta(0);
   load_theta(1);
@@ -336,14 +377,16 @@ dual3_march_kernel(const float* __restrict__ theta, In7 u, const float* __restri
     if (s + 2 <= nsteps) load_theta(s + 2);
     if (s + 1 < nsteps) load_u(s + 1);
     cp_async4_commit();
-    const int p = wrap(c0 - 1 + s, L.m0);
+    // p: this step's local plane (an owned one from s = 1 on), pg: its
+    // global plane for the masks.
+    const int p = c0 - 1 + s, pg = global_plane<kSlab>(p, L, sl);
     if (pt_in) {
       const float* uc = u_s + (s & 1) * 7 * kPts + tid;
-      const int y[3] = {p, y1, y2};
+      const int y[3] = {pg, y1, y2};
       const Point3 P = point3(th_s + (s % 3) * kThPts, th_s + ((s + 1) % 3) * kThPts, q, y, m,
                               tm);
       const bool owned = s >= 1 && pt_own, masked = tm[0] >= 0;
-      const size_t g = size_t(p) * plane + pt_off;
+      const size_t g = size_t(owned ? p : 0) * plane + pt_off;
 #define MVTV_STAGE3(K, BIN)                                                                   \
   stage3<BIN, kWantAlpha, kWantAdjoints>(P, uc[K * kPts], tid, masked, sc.s[K], kappa, us,    \
                                          sv_s + K * NV * kPts, pv[K], owned,                  \
@@ -433,25 +476,27 @@ __device__ __forceinline__ void gram_stage3(const Point3& P, float (&pv)[7], flo
   d_s[K * kPts + pt] = dv;
 }
 
-enum Gram3Mode : int { GRAM3_B_GIVEN = 1, GRAM3_FUSED = 2 };
+// b given: r0 = b - A v; fused: b = oty + rho (dta + u_scale dtu) formed
+// in registers; matvec (B13s only): A v.
+enum Gram3Mode : int { GRAM3_MATVEC = 0, GRAM3_B_GIVEN = 1, GRAM3_FUSED = 2 };
 
-// The knots' inputs besides v (counts, b; or counts, oty, dta, dtu) and
-// B13's shared memory, in floats: 4 planes of v, one stage value per block
-// and point, 3 planes of the knots' inputs.
+// The knots' inputs besides v (counts; counts, b; or counts, oty, dta,
+// dtu) and B13's shared memory, in floats: 4 planes of v, one stage value
+// per block and point, 3 planes of the knots' inputs.
 __host__ __device__ constexpr int gram3_inputs(int mode) {
-  return mode == GRAM3_B_GIVEN ? 2 : 4;
+  return mode == GRAM3_MATVEC ? 1 : (mode == GRAM3_B_GIVEN ? 2 : 4);
 }
 constexpr int gram3_smem_floats(int mode) {
   return 4 * kThPts + 7 * kPts + 3 * gram3_inputs(mode) * kT1 * kT2;
 }
 
-template <int MODE>
+template <int MODE, bool kSlab>
 __global__ void __launch_bounds__(kMarchThreads, kGramMarchCtas)
 gram3_march_kernel(const float* __restrict__ v, const float* __restrict__ counts,
                    const float* __restrict__ b, const float* __restrict__ oty,
                    const float* __restrict__ dta, const float* __restrict__ dtu,
                    const float* __restrict__ rho_p, const float* __restrict__ us_p, Scales7 sc,
-                   float* __restrict__ out, Lat3 L) {
+                   float* __restrict__ out, Lat3 L, Slab3 sl) {
   constexpr int NIN = gram3_inputs(MODE);
   extern __shared__ __align__(16) float smem[];
   float* v_s = smem;                 // [4][kThPts]: v planes, a ring
@@ -463,7 +508,7 @@ gram3_march_kernel(const float* __restrict__ v, const float* __restrict__ counts
   const int c0 = blockIdx.z * kChunk, c1 = min(c0 + kChunk, L.m0);
   const int nsteps = c1 - c0 + 1;  // stage planes c0 - 1 .. c1 - 1
   const size_t plane = size_t(L.m1) * L.m2;
-  const int m[3] = {L.m0, L.m1, L.m2};
+  const int m[3] = {kSlab ? sl.m0g : L.m0, L.m1, L.m2};
   const int no_tm[3] = {-1, -1, -1};
   const float rho = *rho_p;
   const float us = MODE == GRAM3_FUSED ? *us_p : 0.f;
@@ -484,7 +529,7 @@ gram3_march_kernel(const float* __restrict__ v, const float* __restrict__ counts
   // v plane c0 - 1 + j into ring slot j % 4, if the march reads it.
   auto load_v = [&](int j) {
     if (j > nsteps) return;
-    const float* src = v + size_t(wrap(c0 - 1 + j, L.m0)) * plane;
+    const float* src = plane_at<kSlab>(v, sl.lo, sl.hi, c0 - 1 + j, L);
     float* dst = v_s + (j & 3) * kThPts;
 #pragma unroll
     for (int i = 0; i < kThPerThread; ++i)
@@ -519,9 +564,9 @@ gram3_march_kernel(const float* __restrict__ v, const float* __restrict__ counts
     load_v(s + 3);
     load_in(s + 2);
     cp_async4_commit();
-    const int p = wrap(c0 - 1 + s, L.m0);
+    const int p = c0 - 1 + s;  // local; its global plane for the masks below
     if (pt_in) {
-      const int y[3] = {p, y1, y2};
+      const int y[3] = {global_plane<kSlab>(p, L, sl), y1, y2};
       const Point3 P = point3(v_s + (s & 3) * kThPts, v_s + ((s + 1) & 3) * kThPts, q, y, m,
                               no_tm);
       gram_stage3<0, kBin0>(P, pv, d_s, tid);
@@ -539,9 +584,10 @@ gram3_march_kernel(const float* __restrict__ v, const float* __restrict__ counts
     if (s >= 1 && knot_in) {
       const float* in = in_s + (s % 3) * NIN * (kT1 * kT2) + tid;
       const float cv = in[0];
-      const float bv = MODE == GRAM3_B_GIVEN
-                           ? in[kT1 * kT2]
-                           : in[kT1 * kT2] + rho * (in[2 * kT1 * kT2] + us * in[3 * kT1 * kT2]);
+      float bv = 0.f;
+      if (MODE == GRAM3_B_GIVEN) bv = in[kT1 * kT2];
+      if (MODE == GRAM3_FUSED)
+        bv = in[kT1 * kT2] + rho * (in[2 * kT1 * kT2] + us * in[3 * kT1 * kT2]);
       const int pt = (k1 + 1) * kH2 + k2 + 1;
       float acc = 0.f;
       acc += rho * (sc.s[0] * sc.s[0]) * achain12<kBin0>(d_s + 0 * kPts, 0, pt);
@@ -552,7 +598,8 @@ gram3_march_kernel(const float* __restrict__ v, const float* __restrict__ counts
       acc += rho * (sc.s[5] * sc.s[5]) * achain12<kBin5>(d_s + 5 * kPts, 0, pt);
       acc += rho * (sc.s[6] * sc.s[6]) * achain12<kBin6>(d_s + 6 * kPts, 0, pt);
       const float vc = v_s[(s & 3) * kThPts + (k1 + 1) * kTh2 + (k2 + 1)];
-      out[size_t(p) * plane + knot_off] = bv - (cv * vc + acc);
+      out[size_t(p) * plane + knot_off] = MODE == GRAM3_MATVEC ? cv * vc + acc
+                                                                : bv - (cv * vc + acc);
     }
     cp_async4_wait<1>();
     __syncthreads();
@@ -600,6 +647,67 @@ inline unsigned flat_blocks(Lat3 L) {
 
 }  // namespace mvtv
 
+namespace mvtv {
+
+// B12 and B12s: one launch of the plane march and the finish pass of its
+// sums (exactly one of the two flags set).
+template <bool kSlab>
+int launch_dual3(const float* theta, In7 u, const float* kappa, const float* uscale, Scales7 sc,
+                 int t0, int t1, int t2, int want_alpha, int want_adjoints, float* alpha_out,
+                 float* u_out, float* dta, float* dtu, float* partials, long long partials_len,
+                 float* scal, Lat3 L, const Slab3& sl, cudaStream_t s) {
+  const dim3 grid = march_grid(L);
+  const long long nb = (long long)grid.x * grid.y * grid.z;
+  if ((want_alpha != 0) == (want_adjoints != 0) || partials_len < 5 * nb ||
+      (long long)L.m1 * L.m2 > 0x7fffffffLL)
+    return int(cudaErrorInvalidValue);
+  MVTV_CHECK(launch_init_scalars(scal, nullptr, nullptr, uscale, nullptr, kappa, kOne, s));
+  const size_t bytes = sizeof(float) * march_smem_floats(want_adjoints ? 3 : 2);
+  if (want_alpha) {
+    MVTV_CHECK(int(cudaFuncSetAttribute(dual3_march_kernel<true, false, kSlab>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes))));
+    dual3_march_kernel<true, false, kSlab><<<grid, kMarchThreads, bytes, s>>>(
+        theta, u, scal, sc, t0, t1, t2, alpha_out, u_out, dta, dtu, partials, L, sl);
+  } else {
+    MVTV_CHECK(int(cudaFuncSetAttribute(dual3_march_kernel<false, true, kSlab>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes))));
+    dual3_march_kernel<false, true, kSlab><<<grid, kMarchThreads, bytes, s>>>(
+        theta, u, scal, sc, t0, t1, t2, alpha_out, u_out, dta, dtu, partials, L, sl);
+  }
+  MVTV_LAUNCHED();
+  MVTV_CHECK(launch_finish(partials, int(nb), 5, scal + S_STATS, kOne, s));
+  return int(cudaGetLastError());
+}
+
+// B13 and B13s: one launch of the gram march in a mode.
+template <bool kSlab>
+int launch_gram3(int mode, const float* v, const float* counts, const float* b, const float* oty,
+                 const float* dta, const float* dtu, const float* rho, const float* uscale,
+                 Scales7 sc, float* out, Lat3 L, const Slab3& sl, cudaStream_t s) {
+  const dim3 grid = march_grid(L);
+  if ((long long)L.m1 * L.m2 > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+#define MVTV_GRAM3(MODE)                                                                      \
+  do {                                                                                        \
+    const int bytes = int(sizeof(float)) * gram3_smem_floats(MODE);                           \
+    MVTV_CHECK(int(cudaFuncSetAttribute(gram3_march_kernel<MODE, kSlab>,                      \
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes))); \
+    gram3_march_kernel<MODE, kSlab><<<grid, kMarchThreads, bytes, s>>>(                       \
+        v, counts, b, oty, dta, dtu, rho, uscale, sc, out, L, sl);                            \
+  } while (0)
+  if (mode == GRAM3_B_GIVEN)
+    MVTV_GRAM3(GRAM3_B_GIVEN);
+  else if (mode == GRAM3_FUSED)
+    MVTV_GRAM3(GRAM3_FUSED);
+  else if (kSlab && mode == GRAM3_MATVEC)
+    MVTV_GRAM3(GRAM3_MATVEC);
+  else
+    return int(cudaErrorInvalidValue);
+#undef MVTV_GRAM3
+  return int(cudaGetLastError());
+}
+
+}  // namespace mvtv
+
 // B12 entry point.  u0..u6 are the 7 u blocks; alpha_out (7 lattices) is
 // written only with want_alpha, u_out (7 lattices) always, dta/dtu only with
 // want_adjoints.  t0 < 0: no true-region masks.  Exactly one of the two
@@ -619,31 +727,33 @@ extern "C" int mvtv_dual_update_tiled_3d(
     float* dtu, float* partials, long long partials_len, float* scal, int m0, int m1, int m2,
     void* stream) {
   using namespace mvtv;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Lat3 L{m0, m1, m2};
-  const In7 u{{u0, u1, u2, u3, u4, u5, u6}};
-  const Scales7 sc{{s0, s1, s2, s3, s4, s5, s6}};
-  const dim3 grid = march_grid(L);
-  const long long nb = (long long)grid.x * grid.y * grid.z;
-  if ((want_alpha != 0) == (want_adjoints != 0) || partials_len < 5 * nb ||
-      (long long)m1 * m2 > 0x7fffffffLL)
-    return int(cudaErrorInvalidValue);
-  MVTV_CHECK(launch_init_scalars(scal, nullptr, nullptr, uscale, nullptr, kappa, kOne, s));
-  const size_t bytes = sizeof(float) * march_smem_floats(want_adjoints ? 3 : 2);
-  if (want_alpha) {
-    MVTV_CHECK(int(cudaFuncSetAttribute(dual3_march_kernel<true, false>,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes))));
-    dual3_march_kernel<true, false><<<grid, kMarchThreads, bytes, s>>>(
-        theta, u, scal, sc, t0, t1, t2, alpha_out, u_out, dta, dtu, partials, L);
-  } else {
-    MVTV_CHECK(int(cudaFuncSetAttribute(dual3_march_kernel<false, true>,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes))));
-    dual3_march_kernel<false, true><<<grid, kMarchThreads, bytes, s>>>(
-        theta, u, scal, sc, t0, t1, t2, alpha_out, u_out, dta, dtu, partials, L);
-  }
-  MVTV_LAUNCHED();
-  MVTV_CHECK(launch_finish(partials, int(nb), 5, scal + S_STATS, kOne, s));
-  return int(cudaGetLastError());
+  return launch_dual3<false>(theta, In7{{u0, u1, u2, u3, u4, u5, u6}}, kappa, uscale,
+                             Scales7{{s0, s1, s2, s3, s4, s5, s6}}, t0, t1, t2, want_alpha,
+                             want_adjoints, alpha_out, u_out, dta, dtu, partials, partials_len,
+                             scal, Lat3{m0, m1, m2}, Slab3{}, static_cast<cudaStream_t>(stream));
+}
+
+// B12s entry point: B12 on the (m0, m1, m2) plane slab whose plane 0 is
+// global plane row_off of m0g, with the halo planes th_lo, th_hi (theta's
+// planes below and above the slab) and ul0 .. ul6 (the u blocks' plane
+// below); outputs, partials and scal as mvtv_dual_update_tiled_3d's, the 5
+// statistics this slab's partial sums.
+extern "C" int mvtv_dual_update_tiled_3d_shard(
+    const float* theta, const float* u0, const float* u1, const float* u2, const float* u3,
+    const float* u4, const float* u5, const float* u6, const float* th_lo, const float* th_hi,
+    const float* ul0, const float* ul1, const float* ul2, const float* ul3, const float* ul4,
+    const float* ul5, const float* ul6, const float* kappa, const float* uscale, float s0,
+    float s1, float s2, float s3, float s4, float s5, float s6, int t0, int t1, int t2,
+    int row_off, int m0g, int want_alpha, int want_adjoints, float* alpha_out, float* u_out,
+    float* dta, float* dtu, float* partials, long long partials_len, float* scal, int m0, int m1,
+    int m2, void* stream) {
+  using namespace mvtv;
+  if (row_off < 0 || m0 < 1 || row_off + m0 > m0g) return int(cudaErrorInvalidValue);
+  const Slab3 sl{th_lo, th_hi, In7{{ul0, ul1, ul2, ul3, ul4, ul5, ul6}}, row_off, m0g};
+  return launch_dual3<true>(theta, In7{{u0, u1, u2, u3, u4, u5, u6}}, kappa, uscale,
+                            Scales7{{s0, s1, s2, s3, s4, s5, s6}}, t0, t1, t2, want_alpha,
+                            want_adjoints, alpha_out, u_out, dta, dtu, partials, partials_len,
+                            scal, Lat3{m0, m1, m2}, sl, static_cast<cudaStream_t>(stream));
 }
 
 // B13 entry point (mode 1: b given; mode 2: b = oty + rho (dta + u_scale
@@ -654,27 +764,27 @@ extern "C" int mvtv_gram_tiled_3d(int mode, const float* v, const float* counts,
                                   float s2, float s3, float s4, float s5, float s6, float* out,
                                   int m0, int m1, int m2, void* stream) {
   using namespace mvtv;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Lat3 L{m0, m1, m2};
-  const Scales7 sc{{s0, s1, s2, s3, s4, s5, s6}};
-  const dim3 grid = march_grid(L);
-  if ((long long)m1 * m2 > 0x7fffffffLL) return int(cudaErrorInvalidValue);
-#define MVTV_GRAM3(MODE)                                                                      \
-  do {                                                                                        \
-    const int bytes = int(sizeof(float)) * gram3_smem_floats(MODE);                           \
-    MVTV_CHECK(int(cudaFuncSetAttribute(gram3_march_kernel<MODE>,                             \
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes))); \
-    gram3_march_kernel<MODE><<<grid, kMarchThreads, bytes, s>>>(v, counts, b, oty, dta, dtu,  \
-                                                                 rho, uscale, sc, out, L);     \
-  } while (0)
-  if (mode == GRAM3_B_GIVEN)
-    MVTV_GRAM3(GRAM3_B_GIVEN);
-  else if (mode == GRAM3_FUSED)
-    MVTV_GRAM3(GRAM3_FUSED);
-  else
-    return int(cudaErrorInvalidValue);
-#undef MVTV_GRAM3
-  return int(cudaGetLastError());
+  return launch_gram3<false>(mode, v, counts, b, oty, dta, dtu, rho, uscale,
+                             Scales7{{s0, s1, s2, s3, s4, s5, s6}}, out, Lat3{m0, m1, m2},
+                             Slab3{}, static_cast<cudaStream_t>(stream));
+}
+
+// B13s entry point: B13 on the (m0, m1, m2) plane slab whose plane 0 is
+// global plane row_off of m0g, v_lo and v_hi v's planes below and above it;
+// modes 1 and 2 as B13's, mode 0 the matvec (counts + rho D'D) v.
+extern "C" int mvtv_gram_tiled_3d_shard(int mode, const float* v, const float* v_lo,
+                                        const float* v_hi, const float* counts, const float* b,
+                                        const float* oty, const float* dta, const float* dtu,
+                                        const float* rho, const float* uscale, float s0,
+                                        float s1, float s2, float s3, float s4, float s5,
+                                        float s6, int row_off, int m0g, float* out, int m0,
+                                        int m1, int m2, void* stream) {
+  using namespace mvtv;
+  if (row_off < 0 || m0 < 1 || row_off + m0 > m0g) return int(cudaErrorInvalidValue);
+  const Slab3 sl{v_lo, v_hi, In7{}, row_off, m0g};
+  return launch_gram3<true>(mode, v, counts, b, oty, dta, dtu, rho, uscale,
+                            Scales7{{s0, s1, s2, s3, s4, s5, s6}}, out, Lat3{m0, m1, m2}, sl,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // B14 entry point: a0..a6 and u0..u6 the alpha and u blocks.

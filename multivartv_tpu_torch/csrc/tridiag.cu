@@ -52,6 +52,28 @@
 //     interiors back, level by level (7 launches at 4 M rows).
 // Deterministic: no atomics, a fixed order of every operation, so a run
 // repeats bit for bit.
+//
+// Segment mode (the sharded fit's p = 1 x-update, solver/tridiag.py::
+// partition_xupdate): one rank holds a segment of the chain, and solves the
+// segment's principal submatrix of the chain's system for three right-hand
+// sides at once: b and the unit vectors e_0 and e_{n-1} at its two ends,
+// which are formed in registers (rhs_at) and never read from memory.
+// `open` marks the ends that lie inside the chain (bit 0 the first row,
+// bit 1 the last): there T keeps its diagonal 2, as the chain's row does,
+// and the coupling to the neighbour is left to the caller.  The systems
+// share counts and rho; system r (0 b, 1 e_0, 2 e_{n-1}) writes row r of
+// x.  The segment solve takes a second grid axis, one system a row of
+// segments (R G CTAs, co-resident); above what fits, the multi-level route
+// runs the systems one after another.  Device memory sees 20 bytes a row:
+// counts and b read, three solutions written.
+//
+// Partition finish (the same solve's last step, after the ranks gather
+// their segments' end values): every CTA's first thread solves the
+// 2W-unknown interface system in float64 in shared memory (a band of two
+// below and two above the diagonal, eliminated without pivoting: its rows
+// are diagonally dominant), and the CTA writes this rank's
+// x = y + (g x_{k-1}[L]) l + (g x_{k+1}[0]) r.  One launch in place of a
+// dense library solve and its ~20 eager launches; 16 bytes a row.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -78,16 +100,25 @@ struct Sys {
 };
 
 // Row i of the first level, (diag(counts) + g T) x = rhs; rows past n are
-// decoupled identity rows.  g t is exact for t in {0, 1, 2}.
-__device__ __forceinline__ Row first_row(float cnt, float rhs, float g, int i, int n) {
+// decoupled identity rows.  g t is exact for t in {0, 1, 2}.  open: the
+// ends inside a longer chain (bit 0 row 0, bit 1 row n - 1), whose T
+// diagonal stays 2.
+__device__ __forceinline__ Row first_row(float cnt, float rhs, float g, int i, int n, int open) {
   if (i >= n) return Row{0.f, 1.f, 0.f, 0.f};
   float t = 2.f;
-  if (i == 0) t -= 1.f;
-  if (i == n - 1) t -= 1.f;
+  if (i == 0 && !(open & 1)) t -= 1.f;
+  if (i == n - 1 && !(open & 2)) t -= 1.f;
   return Row{i > 0 ? -g : 0.f, cnt + g * t, i < n - 1 ? -g : 0.f, rhs};
 }
 
 __device__ __forceinline__ float g_of(const float* rho, float s) { return (*rho * s) * s; }
+
+// Row i of system `unit`'s right-hand side: rhs[i] for 0, the unit vector
+// at row 0 for 1 and at row n - 1 for 2 (the segment mode's end columns).
+__device__ __forceinline__ float rhs_at(const float* __restrict__ rhs, int unit, int i, int n) {
+  if (unit == 0) return rhs[i];
+  return i == (unit == 1 ? 0 : n - 1) ? 1.f : 0.f;
+}
 
 // a / b: the reciprocal unit's approximation (2 ulp at most) where kFast, the
 // IEEE-rounded quotient otherwise.  The segment solve's quotients are its
@@ -262,6 +293,12 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ p, int i, int 
                      i + 3 < n ? p[i + 3] : 0.f);
 }
 
+// The unit vector with its 1 at row `at`, rows i .. i + 3.
+__device__ __forceinline__ float4 unit4(int i, int at) {
+  return make_float4(i == at ? 1.f : 0.f, i + 1 == at ? 1.f : 0.f, i + 2 == at ? 1.f : 0.f,
+                     i + 3 == at ? 1.f : 0.f);
+}
+
 // ---------------------------------------------------------------------------
 // The segment solve.  Shared memory, in floats: the staged rows (kArrays
 // arrays of T (C + 1), row k of the segment at (k / C)(C + 1) + k % C),
@@ -274,13 +311,15 @@ constexpr size_t seg_smem(int threads, int grid) {
 }
 
 // kFirst: the first level from counts and rhs, x written to x (16-byte
-// loads and stores where vec).  Otherwise the rows of `in` (G = 1), x to x.
-// ends: 8 floats a segment (G > 1: launched cooperatively).
+// loads where vec, stores where x's row is aligned too).  Otherwise the
+// rows of `in` (G = 1), x to x.  ends: 8 floats a segment (G > 1: launched
+// cooperatively).  blockIdx.y: the system (rhs_at's unit; x and ends row
+// y).
 template <int C, bool kFirst>
 __global__ void __launch_bounds__(kSegThreads, 3)
 segment_kernel(const float* __restrict__ counts, const float* __restrict__ rhs,
-               const float* __restrict__ rho, float s, Sys in, float* __restrict__ x,
-               float* __restrict__ ends, int n, int vec) {
+               const float* __restrict__ rho, float s, int open, Sys in,
+               float* __restrict__ x0, float* __restrict__ ends0, int n, int vec) {
   static_assert(C % 4 == 0 && C >= 4, "chunks of whole float4s with an interior");
   constexpr int kArrays = kFirst ? 2 : 4;
   constexpr int kS = C + 1;
@@ -295,6 +334,10 @@ segment_kernel(const float* __restrict__ counts, const float* __restrict__ rhs,
   Row* gl = gf + G;
   const float g = kFirst ? g_of(rho, s) : 0.f;
   const int r0 = blockIdx.x * T * C;  // the segment's first row
+  const int unit = blockIdx.y;
+  float* x = x0 + size_t(unit) * n;
+  const bool vec_x = vec && reinterpret_cast<size_t>(x) % 16 == 0;
+  float* ends = ends0 == nullptr ? nullptr : ends0 + size_t(blockIdx.y) * 8 * G;
 
   // Phase A: stage the segment (C / 4 float4s of each array a thread).
   if constexpr (kFirst) {
@@ -303,7 +346,7 @@ segment_kernel(const float* __restrict__ counts, const float* __restrict__ rhs,
     for (int q = 0; q < C / 4; ++q) {
       const int k = 4 * (q * T + t);
       cv[q] = load4(counts, r0 + k, n, vec);
-      bv[q] = load4(rhs, r0 + k, n, vec);
+      bv[q] = unit == 0 ? load4(rhs, r0 + k, n, vec) : unit4(r0 + k, unit == 1 ? 0 : n - 1);
     }
 #pragma unroll
     for (int q = 0; q < C / 4; ++q) {
@@ -330,7 +373,7 @@ segment_kernel(const float* __restrict__ counts, const float* __restrict__ rhs,
   auto row = [&](int k) {
     const int i = c0 + k;
     if constexpr (kFirst) {
-      return first_row(mine[k], mine[T * kS + k], g, i, n);
+      return first_row(mine[k], mine[T * kS + k], g, i, n, open);
     } else {
       if (i >= n) return Row{0.f, 1.f, 0.f, 0.f};
       return Row{mine[k], mine[T * kS + k], mine[2 * T * kS + k], mine[3 * T * kS + k]};
@@ -380,7 +423,7 @@ segment_kernel(const float* __restrict__ counts, const float* __restrict__ rhs,
       const int k = 4 * (q * T + t);
       const int i = r0 + k;
       const float* src = xs + (k / C) * kS + k % C;
-      if (vec && i + 3 < n) {
+      if (vec_x && i + 3 < n) {
         *reinterpret_cast<float4*>(x + i) = make_float4(src[0], src[1], src[2], src[3]);
       } else {
         for (int e = 0; e < 4; ++e)
@@ -407,7 +450,7 @@ struct Stage {
 // identity rows (row_at).
 template <bool kFirst>
 __device__ __forceinline__ void stage_rows(Stage<kFirst>& st, const float* counts,
-                                           const float* rhs, Sys in, int n) {
+                                           const float* rhs, int unit, Sys in, int n) {
   const int r0 = blockIdx.x * kCtaRows;
   for (int k = threadIdx.x; k < kCtaRows; k += kChunkThreads) {
     const int i = r0 + k;
@@ -415,7 +458,7 @@ __device__ __forceinline__ void stage_rows(Stage<kFirst>& st, const float* count
     const bool ok = i < n;
     if constexpr (kFirst) {
       st.v[0][at] = ok ? counts[i] : 0.f;
-      st.v[1][at] = ok ? rhs[i] : 0.f;
+      st.v[1][at] = ok ? rhs_at(rhs, unit, i, n) : 0.f;
     } else {
       st.v[0][at] = ok ? in.a[i] : 0.f;
       st.v[1][at] = ok ? in.b[i] : 1.f;
@@ -427,11 +470,11 @@ __device__ __forceinline__ void stage_rows(Stage<kFirst>& st, const float* count
 
 // Local row k (0 .. kChunk - 1) of this thread's chunk.
 template <bool kFirst>
-__device__ __forceinline__ Row row_at(const Stage<kFirst>& st, int k, float g, int n) {
+__device__ __forceinline__ Row row_at(const Stage<kFirst>& st, int k, float g, int n, int open) {
   const int at = threadIdx.x * kStride + k;
   const int i = (blockIdx.x * kChunkThreads + threadIdx.x) * kChunk + k;
   if constexpr (kFirst) {
-    return first_row(st.v[0][at], st.v[1][at], g, i, n);
+    return first_row(st.v[0][at], st.v[1][at], g, i, n, open);
   } else {
     if (i >= n) return Row{0.f, 1.f, 0.f, 0.f};
     return Row{st.v[0][at], st.v[1][at], st.v[2][at], st.v[3][at]};
@@ -442,16 +485,17 @@ __device__ __forceinline__ Row row_at(const Stage<kFirst>& st, int k, float g, i
 // rows 2t and 2t + 1 of the reduced system `out`.
 template <bool kFirst>
 __global__ void __launch_bounds__(kChunkThreads)
-reduce_kernel(const float* __restrict__ counts, const float* __restrict__ rhs,
-              const float* __restrict__ rho, float s, Sys in, Sys out, int n, int chunks) {
+reduce_kernel(const float* __restrict__ counts, const float* __restrict__ rhs, int unit,
+              const float* __restrict__ rho, float s, int open, Sys in, Sys out, int n,
+              int chunks) {
   __shared__ Stage<kFirst> st;
   const float g = kFirst ? g_of(rho, s) : 0.f;
-  stage_rows<kFirst>(st, counts, rhs, in, n);
+  stage_rows<kFirst>(st, counts, rhs, unit, in, n);
   __syncthreads();
   const int t = blockIdx.x * kChunkThreads + threadIdx.x;
   if (t >= chunks) return;
   Row f, l;
-  eliminate<kChunk, false>([&](int k) { return row_at<kFirst>(st, k, g, n); }, f, l);
+  eliminate<kChunk, false>([&](int k) { return row_at<kFirst>(st, k, g, n, open); }, f, l);
   const int o = 2 * t;
   out.a[o] = f.a, out.b[o] = f.b, out.c[o] = f.c, out.d[o] = f.d;
   out.a[o + 1] = l.a, out.b[o + 1] = l.b, out.c[o + 1] = l.c, out.d[o + 1] = l.d;
@@ -462,17 +506,17 @@ reduce_kernel(const float* __restrict__ counts, const float* __restrict__ rhs,
 // coalesced store of rows < n.
 template <bool kFirst>
 __global__ void __launch_bounds__(kChunkThreads)
-recover_kernel(const float* __restrict__ counts, const float* __restrict__ rhs,
-               const float* __restrict__ rho, float s, Sys in, const float* __restrict__ xr,
-               float* __restrict__ x, int n, int chunks) {
+recover_kernel(const float* __restrict__ counts, const float* __restrict__ rhs, int unit,
+               const float* __restrict__ rho, float s, int open, Sys in,
+               const float* __restrict__ xr, float* __restrict__ x, int n, int chunks) {
   __shared__ Stage<kFirst> st;
   __shared__ float xs[kChunkThreads * kStride];
   const float g = kFirst ? g_of(rho, s) : 0.f;
-  stage_rows<kFirst>(st, counts, rhs, in, n);
+  stage_rows<kFirst>(st, counts, rhs, unit, in, n);
   __syncthreads();
   const int t = blockIdx.x * kChunkThreads + threadIdx.x;
   if (t < chunks)
-    recover<kChunk, false>([&](int k) { return row_at<kFirst>(st, k, g, n); }, xr[2 * t],
+    recover<kChunk, false>([&](int k) { return row_at<kFirst>(st, k, g, n, open); }, xr[2 * t],
                            xr[2 * t + 1], xs + threadIdx.x * kStride);
   __syncthreads();
   const int r0 = blockIdx.x * kCtaRows;
@@ -538,15 +582,16 @@ inline cudaError_t device_info(Device** out) {
   return cudaSuccess;
 }
 
-// How the segment solve cuts n rows: C rows a thread, T threads, G
-// segments; G = 0 takes the multi-level route.  One segment up to kSmall
-// rows; C = 4 (1,024-row segments) while G fits one CTA per SM; C = 16
-// (4,096-row segments) while G CTAs can be co-resident.
+// How the segment solve cuts n rows of R systems: C rows a thread, T
+// threads, G segments a system; G = 0 takes the multi-level route.  One
+// segment up to kSmall rows; C = 4 (1,024-row segments) while the R G CTAs
+// fit one per SM; C = 16 (4,096-row segments) while they can be
+// co-resident.
 struct Plan {
   int chunk, threads, grid;
 };
 
-inline Plan plan(int n, const Device& d) {
+inline Plan plan(int n, const Device& d, int R = 1) {
   auto threads = [](int rows, int c) {
     const int t = (rows + c - 1) / c;
     return t < 32 ? 32 : (t + 31) / 32 * 32;
@@ -554,29 +599,183 @@ inline Plan plan(int n, const Device& d) {
   if (n <= 4 * kSegThreads) return Plan{4, threads(n, 4), 1};
   if (n <= kSmall) return Plan{16, threads(n, 16), 1};
   const int g4 = (n + 4 * kSegThreads - 1) / (4 * kSegThreads);
-  if (g4 <= d.sms && d.coop) return Plan{4, kSegThreads, g4};
+  if (g4 * R <= d.sms && d.coop) return Plan{4, kSegThreads, g4};
   const int g16 = (n + 16 * kSegThreads - 1) / (16 * kSegThreads);
-  if (g16 <= d.grid16 && d.coop) return Plan{16, kSegThreads, g16};
+  if (g16 * R <= d.grid16 && d.coop) return Plan{16, kSegThreads, g16};
   return Plan{0, 0, 0};
 }
 
 template <int C>
-cudaError_t launch_segments(const Plan& p, const float* counts, const float* b, const float* rho,
-                            float s, float* x, float* ends, int n, cudaStream_t st) {
-  const int vec = ((reinterpret_cast<size_t>(counts) | reinterpret_cast<size_t>(b) |
-                    reinterpret_cast<size_t>(x)) % 16) == 0;
+cudaError_t launch_segments(const Plan& p, const float* counts, const float* b,
+                            const float* rho, float s, int open, int R, float* x, float* ends,
+                            int n, cudaStream_t st) {
+  const size_t ptrs = reinterpret_cast<size_t>(counts) | reinterpret_cast<size_t>(b) |
+                      reinterpret_cast<size_t>(x);
+  const int vec = ptrs % 16 == 0;
   const size_t smem = seg_smem<C, true>(p.threads, p.grid);
   Sys none{};
   if (p.grid == 1) {
-    segment_kernel<C, true><<<1, p.threads, smem, st>>>(counts, b, rho, s, none, x, ends, n, vec);
+    segment_kernel<C, true><<<dim3(1, R), p.threads, smem, st>>>(counts, b, rho, s, open, none,
+                                                                 x, ends, n, vec);
     return cudaGetLastError();
   }
-  void* args[] = {&counts, &b, &rho, &s, &none, &x, &ends, &n, const_cast<int*>(&vec)};
+  void* args[] = {&counts, &b, &rho, &s, &open, &none, &x, &ends, &n, const_cast<int*>(&vec)};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(segment_kernel<C, true>), dim3(p.grid), dim3(p.threads),
+      reinterpret_cast<const void*>(segment_kernel<C, true>), dim3(p.grid, R), dim3(p.threads),
       args, smem, st);
   if (e != cudaSuccess) cudaGetLastError();  // leave no error behind for the next launch
   return e;
+}
+
+}  // namespace tri
+}  // namespace mvtv
+
+namespace mvtv {
+namespace tri {
+
+// Floats of scratch for n rows of R systems: 8 a segment, or four system
+// arrays and a solution per level after the first (the R systems of the
+// multi-level route run one after another on one scratch).
+inline long long work_floats(int n, int R, const Device& d) {
+  const Plan p = plan(n, d, R);
+  if (p.grid > 0) return 8LL * p.grid * R;
+  int sizes[kMaxLevels + 1];
+  const int levels = level_sizes(n, sizes);
+  long long total = 0;
+  for (int l = 1; l <= levels; ++l) total += 5LL * sizes[l];
+  return total;
+}
+
+// The multi-level route for one system (rhs_at's unit).
+inline cudaError_t multi_level(const float* counts, const float* b, int unit, const float* rho,
+                               float s, int open, float* x, float* work, int n,
+                               cudaStream_t st) {
+  int sizes[kMaxLevels + 1];
+  const int levels = level_sizes(n, sizes);
+  if (levels > kMaxLevels) return cudaErrorInvalidValue;
+  Sys sys[kMaxLevels + 1] = {};
+  float* xl[kMaxLevels + 1] = {};
+  float* q = work;
+  for (int l = 1; l <= levels; ++l) {
+    const int m = sizes[l];
+    sys[l] = Sys{q, q + m, q + 2 * m, q + 3 * m};
+    xl[l] = q + 4 * m;
+    q += 5 * m;
+  }
+  xl[0] = x;
+  cudaError_t err;
+  auto chunk_ctas = [](int m) { return (m + kCtaRows - 1) / kCtaRows; };
+  // Eliminate down to one CTA's system.
+  for (int l = 0; l < levels; ++l) {
+    const int chunks = (sizes[l] + kChunk - 1) / kChunk;
+    if (l == 0)
+      reduce_kernel<true><<<chunk_ctas(sizes[0]), kChunkThreads, 0, st>>>(
+          counts, b, unit, rho, s, open, Sys{}, sys[1], sizes[0], chunks);
+    else
+      reduce_kernel<false><<<chunk_ctas(sizes[l]), kChunkThreads, 0, st>>>(
+          nullptr, nullptr, 0, nullptr, 0.f, 0, sys[l], sys[l + 1], sizes[l], chunks);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const int m = sizes[levels];
+  const int threads = ((m + 15) / 16 + 31) / 32 * 32;
+  segment_kernel<16, false><<<1, threads, seg_smem<16, false>(threads, 1), st>>>(
+      nullptr, nullptr, nullptr, 0.f, 0, sys[levels], xl[levels], nullptr, m, 0);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // Recover the interiors, level by level back up.
+  for (int l = levels - 1; l >= 0; --l) {
+    const int chunks = (sizes[l] + kChunk - 1) / kChunk;
+    if (l == 0)
+      recover_kernel<true><<<chunk_ctas(sizes[0]), kChunkThreads, 0, st>>>(
+          counts, b, unit, rho, s, open, Sys{}, xl[1], x, sizes[0], chunks);
+    else
+      recover_kernel<false><<<chunk_ctas(sizes[l]), kChunkThreads, 0, st>>>(
+          nullptr, nullptr, 0, nullptr, 0.f, 0, sys[l], xl[l + 1], xl[l], sizes[l], chunks);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// R = 1: b; R = 3: b, e_0 and e_{n-1} (the segment mode).
+inline int solve(const float* counts, const float* b, const float* rho, float s, int open,
+                 int R, float* x, float* work, int n, cudaStream_t st) {
+  Device* d = nullptr;
+  const cudaError_t err = device_info(&d);
+  if (err != cudaSuccess) return int(err);
+  if (n < 1 || (R != 1 && R != 3) || open < 0 || open > 3) return int(cudaErrorInvalidValue);
+  const Plan p = plan(n, *d, R);
+  if (p.chunk == 4) return int(launch_segments<4>(p, counts, b, rho, s, open, R, x, work, n, st));
+  if (p.chunk == 16)
+    return int(launch_segments<16>(p, counts, b, rho, s, open, R, x, work, n, st));
+  for (int r = 0; r < R; ++r) {
+    const cudaError_t e = multi_level(counts, b, r, rho, s, open, x + size_t(r) * n, work, n, st);
+    if (e != cudaSuccess) return int(e);
+  }
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// The partition finish.
+// ---------------------------------------------------------------------------
+constexpr int kFinishThreads = 256;
+constexpr int kMaxRanks = 256;  // 12 W doubles of shared memory: 24 KB
+
+// This rank's two couplings (g x_{k-1}[L], g x_{k+1}[0]) from ends, W rows
+// of (y[0], y[L], l[0], l[L], r[0], r[L], rho): the unknowns z[2j] = x_j[0],
+// z[2j + 1] = x_j[L] solve z[2j + e] - g l_e z[2j - 1] - g r_e z[2j + 2] =
+// y_e (e = 0 the first row, 1 the last; no terms past the chain's ends).
+// band: 5 doubles a row, row r's entry of column c at 5 r + c - r + 2; rhs:
+// 2 W doubles, overwritten by z.  g (l_e + r_e) <= 1, as A_j's row sums are
+// at least g at its open ends, so no pivot is needed.
+__device__ void interface_couplings(const float* __restrict__ ends, int W, int k, float s,
+                                    double* band, double* rhs, double* out) {
+  const int N = 2 * W;
+  const double g = double(g_of(ends + 6, s));
+  for (int r = 0; r < N; ++r) {
+    const int j = r / 2, e = r % 2;
+    const float* ej = ends + 7 * j;
+    double* b = band + 5 * r;
+    b[0] = b[1] = b[3] = b[4] = 0.0;
+    b[2] = 1.0;
+    if (j > 0) b[1 - e] = -g * double(ej[2 + e]);      // column 2j - 1
+    if (j < W - 1) b[4 - e] = -g * double(ej[4 + e]);  // column 2j + 2
+    rhs[r] = double(ej[e]);
+  }
+  for (int r = 0; r < N; ++r) {
+    const double* br = band + 5 * r;
+    for (int i = 1; i <= 2 && r + i < N; ++i) {
+      double* bi = band + 5 * (r + i);
+      const double f = bi[2 - i] / br[2];
+      for (int c = 0; c <= 2; ++c) bi[2 - i + c] -= f * br[2 + c];
+      rhs[r + i] -= f * rhs[r];
+    }
+  }
+  for (int r = N - 1; r >= 0; --r) {
+    double v = rhs[r];
+    for (int c = 1; c <= 2 && r + c < N; ++c) v -= band[5 * r + 2 + c] * rhs[r + c];
+    rhs[r] = v / band[5 * r + 2];
+  }
+  out[0] = k > 0 ? g * rhs[2 * k - 1] : 0.0;
+  out[1] = k < W - 1 ? g * rhs[2 * k + 2] : 0.0;
+}
+
+// x = y + cl l + cr r over this rank's n rows (ylr: 3 rows of n), the
+// couplings rounded to float once and the sums in torch's order, unfused.
+__global__ void __launch_bounds__(kFinishThreads)
+finish_kernel(const float* __restrict__ ends, int W, int k, float s,
+              const float* __restrict__ ylr, float* __restrict__ x, int n) {
+  extern __shared__ double fin_sm[];
+  __shared__ float cpl[2];
+  if (threadIdx.x == 0) {
+    double out[2];
+    interface_couplings(ends, W, k, s, fin_sm, fin_sm + 10 * W, out);
+    cpl[0] = float(out[0]);
+    cpl[1] = float(out[1]);
+  }
+  __syncthreads();
+  const float cl = cpl[0], cr = cpl[1];
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x)
+    x[i] = __fadd_rn(__fadd_rn(ylr[i], __fmul_rn(cl, ylr[n + i])),
+                     __fmul_rn(cr, ylr[2 * size_t(n) + i]));
 }
 
 }  // namespace tri
@@ -590,69 +789,49 @@ extern "C" long long mvtv_xupdate_tridiag_work(int n) {
   Device* d = nullptr;
   const cudaError_t e = device_info(&d);
   if (e != cudaSuccess) return -static_cast<long long>(e);
-  const Plan p = plan(n, *d);
-  if (p.grid > 0) return 8LL * p.grid;
-  int sizes[kMaxLevels + 1];
-  const int levels = level_sizes(n, sizes);
-  long long total = 0;
-  for (int l = 1; l <= levels; ++l) total += 5LL * sizes[l];
-  return total;
+  return work_floats(n, 1, *d);
 }
 
 // T1 entry point: x = (diag(counts) + g T)^{-1} b, g = (*rho s) s, n rows;
 // work holds mvtv_xupdate_tridiag_work(n) floats.
 extern "C" int mvtv_xupdate_tridiag(const float* counts, const float* b, const float* rho,
                                     float s, float* x, float* work, int n, void* stream) {
-  using namespace mvtv::tri;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Device* d = nullptr;
-  cudaError_t err = device_info(&d);
-  if (err != cudaSuccess) return int(err);
-  const Plan p = plan(n, *d);
-  if (p.chunk == 4) return int(launch_segments<4>(p, counts, b, rho, s, x, work, n, st));
-  if (p.chunk == 16) return int(launch_segments<16>(p, counts, b, rho, s, x, work, n, st));
+  return mvtv::tri::solve(counts, b, rho, s, 0, 1, x, work, n,
+                          static_cast<cudaStream_t>(stream));
+}
 
-  // The multi-level route.
-  int sizes[kMaxLevels + 1];
-  const int levels = level_sizes(n, sizes);
-  if (levels > kMaxLevels) return int(cudaErrorInvalidValue);
-  Sys sys[kMaxLevels + 1] = {};
-  float* xl[kMaxLevels + 1] = {};
-  float* q = work;
-  for (int l = 1; l <= levels; ++l) {
-    const int m = sizes[l];
-    sys[l] = Sys{q, q + m, q + 2 * m, q + 3 * m};
-    xl[l] = q + 4 * m;
-    q += 5 * m;
-  }
-  xl[0] = x;
-  auto chunk_ctas = [](int m) { return (m + kCtaRows - 1) / kCtaRows; };
-  // Eliminate down to one CTA's system.
-  for (int l = 0; l < levels; ++l) {
-    const int chunks = (sizes[l] + kChunk - 1) / kChunk;
-    if (l == 0)
-      reduce_kernel<true><<<chunk_ctas(sizes[0]), kChunkThreads, 0, st>>>(
-          counts, b, rho, s, Sys{}, sys[1], sizes[0], chunks);
-    else
-      reduce_kernel<false><<<chunk_ctas(sizes[l]), kChunkThreads, 0, st>>>(
-          nullptr, nullptr, nullptr, 0.f, sys[l], sys[l + 1], sizes[l], chunks);
-    if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-  }
-  const int m = sizes[levels];
-  const int threads = ((m + 15) / 16 + 31) / 32 * 32;
-  segment_kernel<16, false><<<1, threads, seg_smem<16, false>(threads, 1), st>>>(
-      nullptr, nullptr, nullptr, 0.f, sys[levels], xl[levels], nullptr, m, 0);
-  if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-  // Recover the interiors, level by level back up.
-  for (int l = levels - 1; l >= 0; --l) {
-    const int chunks = (sizes[l] + kChunk - 1) / kChunk;
-    if (l == 0)
-      recover_kernel<true><<<chunk_ctas(sizes[0]), kChunkThreads, 0, st>>>(
-          counts, b, rho, s, Sys{}, xl[1], x, sizes[0], chunks);
-    else
-      recover_kernel<false><<<chunk_ctas(sizes[l]), kChunkThreads, 0, st>>>(
-          nullptr, nullptr, nullptr, 0.f, sys[l], xl[l + 1], xl[l], sizes[l], chunks);
-    if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-  }
-  return 0;
+// The segment mode's scratch for n rows (three systems), as
+// mvtv_xupdate_tridiag_work's.
+extern "C" long long mvtv_xupdate_tridiag_segment_work(int n) {
+  using namespace mvtv::tri;
+  Device* d = nullptr;
+  const cudaError_t e = device_info(&d);
+  if (e != cudaSuccess) return -static_cast<long long>(e);
+  return work_floats(n, 3, *d);
+}
+
+// T1 in its segment mode: x (3 rows of n) with the segment's system
+// (diag(counts) + g T_open) x_r = rhs_r for rhs_0 = b, rhs_1 = e_0 and
+// rhs_2 = e_{n-1}, T_open keeping the diagonal 2 at the ends `open` marks
+// (bit 0 the first row, bit 1 the last).  One launch while the segment
+// solve holds the three systems.
+extern "C" int mvtv_xupdate_tridiag_segment(const float* counts, const float* b,
+                                            const float* rho, float s, int open, float* x,
+                                            float* work, int n, void* stream) {
+  return mvtv::tri::solve(counts, b, rho, s, open, 3, x, work, n,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The partition finish on rank `rank` of W: x (n) from ends (W rows of 7
+// floats, every rank's segment ends and rho, gathered) and this rank's
+// segment solve ylr (3 rows of n).  One launch.
+extern "C" int mvtv_partition_finish(const float* ends, int W, int rank, float s,
+                                     const float* ylr, float* x, int n, void* stream) {
+  using namespace mvtv::tri;
+  if (W < 1 || W > kMaxRanks || rank < 0 || rank >= W || n < 1)
+    return int(cudaErrorInvalidValue);
+  const int blocks = (n + kFinishThreads - 1) / kFinishThreads;
+  finish_kernel<<<blocks < 1024 ? blocks : 1024, kFinishThreads, sizeof(double) * 12 * W,
+                  static_cast<cudaStream_t>(stream)>>>(ends, W, rank, s, ylr, x, n);
+  return int(cudaGetLastError());
 }

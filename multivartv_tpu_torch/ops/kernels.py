@@ -26,6 +26,8 @@ the three row-slab kernels of the sharded route:
   dual_update_tiled_2d_shard    _tiled_dual_kernel, sharded (B8s)            dual.cu
   gram_residual_tiled_2d_shard  _tiled_gram_res_kernel, sharded (B9s)        tiled.cu
   rhs_tiled_2d_shard            _tiled_rhs_kernel, sharded (B11s)            rhs.cu
+  dual_update_tiled_3d_shard    none: XLA under SPMD in JAX (B12s)           tiled3.cu
+  gram_residual_tiled_3d_shard  none: XLA under SPMD in JAX (B13s)           tiled3.cu
   xupdate_tridiag               none: XLA in JAX, solver/tridiag.py:208 (T1) tridiag.cu
   ============================  ===========================================  =======================
 
@@ -41,7 +43,15 @@ and B10 (on 16-byte aligned rows) are one row march (csrc/tiled.cu).  B2
 is one launch, and B11 is B2's kernel, which takes any m0, m1.  B11, B14
 and B11s have no ADMM caller, as in the JAX package.
 ``gram_matvec_tiled_2d_shard`` is B9s's kernel in its matvec mode, the
-sharded PCG's matvec (the JAX package leaves it to XLA).
+sharded PCG's matvec (the JAX package leaves it to XLA).  B12s and B13s
+are B12's and B13's plane marches in a slab mode (one rank's plane slab of
+a 3-D lattice, the halo planes read in place of the wrapped ones), and
+``gram_matvec_tiled_3d_shard`` is B13s in its matvec mode.
+``xupdate_tridiag_segment`` is T1 in its segment mode: one rank's segment
+of a chain, solved for b and the unit vectors at its two ends in one
+launch (the p = 1 partition solve, solver/tridiag.py); ``partition_finish``
+is that solve's last step, the interface system of the gathered segment
+ends and this rank's back-substitution, in one launch.
 ``xupdate_tridiag`` (T1) is the exact p = 1 x-update, which the JAX package
 runs as one fused XLA program: one launch of the segment solve (each CTA
 a segment of rows in shared memory, a grid barrier between) up to ~1.6 M
@@ -88,7 +98,8 @@ KERNELS = ("dual_update_2d", "rhs_2d", "xupdate_pcg_2d_packed", "admm_iters_2d",
            "dual_update_tiled_3d", "gram_residual_tiled_3d", "rhs_tiled_3d",
            "dual_update_tiled_2d_shard", "gram_residual_tiled_2d_shard",
            "gram_matvec_tiled_2d_shard", "rhs_tiled_2d_shard", "dual_struct",
-           "xupdate_tridiag")
+           "xupdate_tridiag", "dual_update_tiled_3d_shard", "gram_residual_tiled_3d_shard",
+           "gram_matvec_tiled_3d_shard", "xupdate_tridiag_segment", "partition_finish")
 # The p = 3 block set in fd_binaries(3) order (pallas_kernels.py:1930).
 BINARIES3 = ((1, 1, 1), (0, 0, 1), (0, 1, 0), (0, 1, 1), (1, 0, 0), (1, 0, 1), (1, 1, 0))
 launch_counts = {name: 0 for name in KERNELS}
@@ -528,6 +539,128 @@ def rhs_tiled_3d_reference(alpha, u, oty, rho, u_scale, scales):
     return oty + rho * diff_ops.apply_Dt(au, BINARIES3, scales)
 
 
+# The plane-slab variants of p = 3 (B12s, B13s): each computes its
+# whole-lattice twin's function on one rank's (m0, m1, m2) plane slab of a
+# lattice of m0_global planes, whose plane 0 is global plane row_off, from
+# the slab and the halo planes around it: halos_top[k] and halos_bot[k] are
+# (h, m1, m2) arrays, h >= 1, whose last and first planes are input k's
+# planes below and above the slab (zeros at the global edges).  The plain
+# versions work on the slab's panel (its planes -1 .. m0), every axis-0
+# mask on the global plane.
+
+def _panel3(x, top, bot):
+    return torch.cat([top[-1:], x, bot[:1]])
+
+
+def _global_mask0(panel, row_off: int, m0_global: int):
+    """The axis-0 difference's mask on a panel's global planes (0 on the
+    last plane and below the lattice), broadcast over the plane."""
+    g = torch.arange(panel.shape[0], device=panel.device) + (row_off - 1)
+    return ((g >= 0) & (g < m0_global - 1)).to(panel.dtype).reshape((-1,) + (1,) * (panel.ndim - 1))
+
+
+def _panel_block(panel, b, mask0):
+    """apply_block on a slab's panel, axis-0 masked on the global planes."""
+    d = diff_ops.apply_block(panel, b)
+    return d * mask0 if b[0] else d
+
+
+def _panel_true_masks(panel, true_m, row_off: int):
+    """_wmasks3 (diff.true_region_mask) of each block on a panel's global
+    planes, or None."""
+    if true_m is None:
+        return None
+    g = torch.arange(panel.shape[0], device=panel.device)[:, None, None] + (row_off - 1)
+    rest = [torch.arange(n, device=panel.device) for n in panel.shape[1:]]
+    out = []
+    for b in BINARIES3:
+        w = (g < int(true_m[0]) - b[0])
+        w = w & (rest[0][None, :, None] < int(true_m[1]) - b[1])
+        w = w & (rest[1][None, None, :] < int(true_m[2]) - b[2])
+        out.append(w.to(panel.dtype))
+    return tuple(out)
+
+
+def dual_update_tiled_3d_shard_reference(theta, u, halos_top, halos_bot, row_off: int,
+                                         m0_global: int, kappa, scales, u_scale=None,
+                                         true_m=None, want_adjoints=False, want_alpha=True):
+    """B12s: dual_update_tiled_3d_reference on a plane slab, halos in
+    (theta, u0, .., u6) order (only theta's plane above is read); the
+    stats are this slab's partial sums."""
+    th = _panel3(theta, halos_top[0], halos_bot[0])
+    mask0 = _global_mask0(th, row_off, m0_global)
+    us = 1.0 if u_scale is None else u_scale
+    ue = tuple(us * _panel3(w, t, b) for w, t, b in zip(u, halos_top[1:], halos_bot[1:]))
+    d = tuple(s * _panel_block(th, b, mask0) for b, s in zip(BINARIES3, scales))
+    wm = _panel_true_masks(th, true_m, row_off)
+    ks = (kappa,) * 7 if wm is None else tuple(kappa * w for w in wm)
+    alpha = tuple(_soft(dd - e, k) for dd, e, k in zip(d, ue, ks))
+    r = tuple(a - dd for a, dd in zip(alpha, d))
+    u_new = tuple(e + rr for e, rr in zip(ue, r))
+    sd, sa = (d, alpha) if wm is None else (
+        tuple(x * w for x, w in zip(d, wm)), tuple(a * w for a, w in zip(alpha, wm)))
+    own = slice(1, th.shape[0] - 1)
+
+    def adj(blocks):
+        return diff_ops.apply_Dt(blocks, BINARIES3, scales)[own]
+
+    def sq(blocks):
+        return sum(torch.sum(torch.square(x[own])) for x in blocks)
+
+    dtr, dtu = adj(r), adj(u_new)
+    stats = torch.stack([sq(r), sq(sd), sq(sa), torch.sum(dtr * dtr), torch.sum(dtu * dtu)])
+    out = (tuple(a[own] for a in alpha) if want_alpha else None,
+           tuple(w[own] for w in u_new), stats)
+    if want_adjoints:
+        out += (adj(alpha), dtu)
+    return out
+
+
+def _gram3_slab(v, halo_top, halo_bot, row_off, m0_global, counts, rho, scales):
+    """(counts + rho D'D) v on a plane slab, each block's term rho (s^2)
+    (s^2 rounded to float32), as gram_residual_tiled_3d_reference's."""
+    panel = _panel3(v, halo_top, halo_bot)
+    mask0 = _global_mask0(panel, row_off, m0_global)
+    acc = None
+    for bb, s in zip(BINARIES3, scales):
+        s2 = float(np.float32(s) * np.float32(s))
+        term = (rho * s2) * diff_ops.adjoint_block(_panel_block(panel, bb, mask0), bb)
+        acc = term if acc is None else acc + term
+    return counts * v + acc[1:-1]
+
+
+def gram_residual_tiled_3d_shard_reference(b, v, halo_top, halo_bot, row_off: int,
+                                           m0_global: int, counts, rho, scales,
+                                           rhs_parts=None):
+    """B13s: gram_residual_tiled_3d_reference on a plane slab, v's halo
+    arrays given."""
+    if rhs_parts is not None:
+        oty, dta, u_scale, dtu = rhs_parts
+        b = oty + rho * (dta + u_scale * dtu)
+    return b - _gram3_slab(v, halo_top, halo_bot, row_off, m0_global, counts, rho, scales)
+
+
+def gram_matvec_tiled_3d_shard_reference(v, halo_top, halo_bot, row_off: int, m0_global: int,
+                                         counts, rho, scales):
+    """(counts + rho D'D) v on a plane slab: B13s's matvec mode, the
+    sharded PCG's matvec at p = 3."""
+    return _gram3_slab(v, halo_top, halo_bot, row_off, m0_global, counts, rho, scales)
+
+
+def xupdate_tridiag_segment_reference(counts, b, rho, scale, open_lo: bool, open_hi: bool):
+    """T1's segment mode: (3, n) = the segment's system solved for b and the
+    unit vectors at its first and last rows (solver/tridiag.py::
+    segment_solve, the cyclic reduction)."""
+    return tridiag.segment_solve(counts, b, rho, scale, open_lo, open_hi)
+
+
+def partition_finish_reference(every, rank: int, scale, ylr):
+    """This rank's x from the gathered segment ends and rho (W, 7) and its
+    segment solve ylr (3, n): the dense float64 interface solve and the
+    back-substitution of solver/tridiag.py::partition_finish."""
+    return tridiag.partition_finish(every, rank, scale, ylr)
+
+
 def xupdate_tridiag_reference(counts, b, rho, scale):
     """x with (diag(counts) + (rho s) s T) x = b: the cyclic reduction of
     solver/tridiag.py."""
@@ -566,10 +699,16 @@ _ARGTYPES = {
     "mvtv_dual_struct": [_P, _I, _P, _I, _I, _P, _I, _I, _P],
     "mvtv_xupdate_tridiag": [_P, _P, _P, _F, _P, _P, _I, _P],
     "mvtv_xupdate_tridiag_work": [_I],
+    "mvtv_dual_update_tiled_3d_shard": ([_P] * 19 + [_F] * 7 + [_I] * 7 + [_P] * 5
+                                        + [_LL, _P] + [_I] * 3 + [_P]),
+    "mvtv_gram_tiled_3d_shard": [_I] + [_P] * 10 + [_F] * 7 + [_I, _I, _P] + [_I] * 3 + [_P],
+    "mvtv_xupdate_tridiag_segment": [_P, _P, _P, _F, _I, _P, _P, _I, _P],
+    "mvtv_xupdate_tridiag_segment_work": [_I],
+    "mvtv_partition_finish": [_P, _I, _I, _F, _P, _P, _I, _P],
 }
 # The work-size queries that return a count of floats as a long long.
 _LONG_RESULTS = ("mvtv_xupdate_pcg_2d_packed_work", "mvtv_admm_iters_2d_batched_work",
-                 "mvtv_xupdate_tridiag_work")
+                 "mvtv_xupdate_tridiag_work", "mvtv_xupdate_tridiag_segment_work")
 _configured = False
 
 
@@ -1341,6 +1480,140 @@ def rhs_tiled_3d(alpha: Sequence[torch.Tensor], u: Sequence[torch.Tensor], oty: 
     return b
 
 
+# ---------------------------------------------------------------------------
+# The plane-slab kernels of the sharded route at p = 3 (parallel/tiled_shard.py)
+# ---------------------------------------------------------------------------
+
+def _plane_ptrs(halos, first: bool, plane):
+    """Device pointers of the halo arrays' planes next to the slab (the last
+    plane of each top array, the first of each bottom one), checked."""
+    ptrs = []
+    for h in halos:
+        shp = tuple(h.shape)
+        if (h.dtype != torch.float32 or len(shp) != 3 or shp[0] < 1 or shp[1:] != plane
+                or not h.is_contiguous()):
+            raise ValueError(f"expected contiguous float32 (h, {plane[0]}, {plane[1]}) halo "
+                             f"arrays, h >= 1, got {h.dtype} {shp}")
+        ptrs.append(h.data_ptr() + (0 if first else 4 * plane[0] * plane[1] * (shp[0] - 1)))
+    return ptrs
+
+
+def dual_update_tiled_3d_shard(theta: torch.Tensor, u: Sequence[torch.Tensor], halos_top,
+                               halos_bot, row_off: int, m0_global: int, kappa,
+                               scales: Sequence[float], u_scale=None,
+                               true_m: Optional[Tuple[int, int, int]] = None,
+                               want_adjoints: bool = False, want_alpha: bool = True):
+    """B12s: dual_update_tiled_3d's contract on a plane slab (see the plain
+    versions), halos in (theta, u0, .., u6) order; the stats are this
+    slab's partial sums, which the caller all-reduces.  On the card B12's
+    plane march in its slab mode, one launch (and B12's finish pass); as
+    B12, want_alpha != want_adjoints."""
+    shape = tuple(theta.shape)
+    _check_lattices(shape, theta, rank=3)
+    _check_blocks3(shape, scales, u)
+    _check_slab(row_off, shape[0], m0_global)
+    if len(halos_top) != 8 or len(halos_bot) != 8:
+        raise ValueError("B12s takes 8 top and 8 bottom halo arrays (theta, u0 .. u6)")
+    top = _plane_ptrs(halos_top, False, shape[1:])
+    bot = _plane_ptrs(halos_bot[:1], True, shape[1:])
+    if _route(theta, *u, *halos_top, *halos_bot) == "cpu":
+        return dual_update_tiled_3d_shard_reference(theta, u, halos_top, halos_bot, row_off,
+                                                    m0_global, kappa, scales, u_scale, true_m,
+                                                    want_adjoints, want_alpha)
+    if bool(want_alpha) == bool(want_adjoints):
+        raise ValueError("dual_update_tiled_3d_shard on the card: want_alpha and want_adjoints "
+                         f"must differ (got {want_alpha}, {want_adjoints})")
+    dev = theta.device
+    if u_scale is None:
+        u_scale = torch.ones((), dtype=torch.float32, device=dev)
+    lib = _lib()
+    n_a, n_d = (7 if want_alpha else 0), (2 if want_adjoints else 0)
+    out = torch.empty((n_a + 7 + n_d,) + shape, dtype=torch.float32, device=dev)
+    scal = _scal_buffer(0, dev)
+    partials = torch.empty(5 * lib.mvtv_dual_update_tiled_3d_blocks(*shape),
+                           dtype=torch.float32, device=dev)
+    tm = (-1, -1, -1) if true_m is None else tuple(int(v) for v in true_m)
+    err = lib.mvtv_dual_update_tiled_3d_shard(
+        theta.data_ptr(), *(t.data_ptr() for t in u), top[0], bot[0], *top[1:],
+        _scalar_ptr(kappa, dev), _scalar_ptr(u_scale, dev), *scales, *tm, int(row_off),
+        int(m0_global), int(want_alpha), int(want_adjoints),
+        out[0].data_ptr() if want_alpha else None, out[n_a].data_ptr(),
+        out[n_a + 7].data_ptr() if want_adjoints else None,
+        out[n_a + 8].data_ptr() if want_adjoints else None,
+        partials.data_ptr(), partials.numel(), scal.data_ptr(), *shape, _stream(dev))
+    _raise_on(err, "dual_update_tiled_3d_shard")
+    launch_counts["dual_update_tiled_3d_shard"] += 1
+    res = (tuple(out[0:7].unbind(0)) if want_alpha else None,
+           tuple(out[n_a:n_a + 7].unbind(0)), scal[S_STATS:S_STATS + 5])
+    if want_adjoints:
+        res += (out[n_a + 7], out[n_a + 8])
+    return res
+
+
+def _launch_gram3_slab(mode: int, name: str, v, top: int, bot: int, row_off, m0_global, counts,
+                       b, parts, rho, scales) -> torch.Tensor:
+    """B13s (csrc/tiled3.cu) on CUDA tensors, v's halo planes given as
+    pointers, counted under ``name``."""
+    dev = v.device
+    oty, dta, u_scale, dtu = parts if parts is not None else (None, None, None, None)
+    out = torch.empty_like(v)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    err = _lib().mvtv_gram_tiled_3d_shard(
+        mode, v.data_ptr(), top, bot, counts.data_ptr(), ptr(b), ptr(oty), ptr(dta), ptr(dtu),
+        _scalar_ptr(rho, dev), None if u_scale is None else _scalar_ptr(u_scale, dev),
+        *scales, int(row_off), int(m0_global), out.data_ptr(), *v.shape, _stream(dev))
+    _raise_on(err, name)
+    launch_counts[name] += 1
+    return out
+
+
+def gram_residual_tiled_3d_shard(b: Optional[torch.Tensor], v: torch.Tensor, halo_top,
+                                 halo_bot, row_off: int, m0_global: int,
+                                 counts: torch.Tensor, rho, scales: Sequence[float],
+                                 rhs_parts=None) -> torch.Tensor:
+    """B13s: gram_residual_tiled_3d on a plane slab, halo_top and halo_bot
+    v's halo arrays; rhs_parts as B13's (every part a slab)."""
+    shape = tuple(v.shape)
+    if rhs_parts is not None:
+        oty, dta, u_scale, dtu = rhs_parts
+        lattices = (v, counts, oty, dta, dtu)
+    else:
+        lattices = (v, counts, b)
+    _check_lattices(shape, *lattices, rank=3)
+    _check_blocks3(shape, scales)
+    _check_slab(row_off, shape[0], m0_global)
+    (top,), (bot,) = (_plane_ptrs([halo_top], False, shape[1:]),
+                      _plane_ptrs([halo_bot], True, shape[1:]))
+    if _route(*lattices, halo_top, halo_bot) == "cpu":
+        return gram_residual_tiled_3d_shard_reference(b, v, halo_top, halo_bot, row_off,
+                                                      m0_global, counts, rho, scales, rhs_parts)
+    fused = rhs_parts is not None
+    return _launch_gram3_slab(2 if fused else 1, "gram_residual_tiled_3d_shard", v, top, bot,
+                              row_off, m0_global, counts, None if fused else b, rhs_parts, rho,
+                              scales)
+
+
+def gram_matvec_tiled_3d_shard(v: torch.Tensor, halo_top, halo_bot, row_off: int,
+                               m0_global: int, counts: torch.Tensor, rho,
+                               scales: Sequence[float]) -> torch.Tensor:
+    """(counts + rho D'D) v on a plane slab: B13s in its matvec mode, the
+    sharded PCG's matvec at p = 3."""
+    shape = tuple(v.shape)
+    _check_lattices(shape, v, counts, rank=3)
+    _check_blocks3(shape, scales)
+    _check_slab(row_off, shape[0], m0_global)
+    (top,), (bot,) = (_plane_ptrs([halo_top], False, shape[1:]),
+                      _plane_ptrs([halo_bot], True, shape[1:]))
+    if _route(v, counts, halo_top, halo_bot) == "cpu":
+        return gram_matvec_tiled_3d_shard_reference(v, halo_top, halo_bot, row_off, m0_global,
+                                                    counts, rho, scales)
+    return _launch_gram3_slab(0, "gram_matvec_tiled_3d_shard", v, top, bot, row_off, m0_global,
+                              counts, None, None, rho, scales)
+
+
 def stream_copy(src: torch.Tensor, dst: torch.Tensor, blocks: int = 132 * 8) -> None:
     """The streaming-copy probe (csrc/probe.cu): dst = src, float32 CUDA
     tensors of one size, a multiple of 4.  No solver path calls it."""
@@ -1379,18 +1652,20 @@ _TRIDIAG_WORK = {}
 _TRIDIAG_FLOATS = {}
 
 
-def _tridiag_work(lib, n: int, device, stream: int) -> int:
-    """Device pointer of T1's scratch for n rows on one stream of
-    ``device``: 8 floats a segment of the segment solve, or the levels of
-    the multi-level route (``mvtv_xupdate_tridiag_work``, asked once per
-    n); one buffer per device and stream, grown when a call needs more.
-    Launches on one stream run in order, so they share it."""
-    need = _TRIDIAG_FLOATS.get((device.index, n))
+def _tridiag_work(lib, n: int, device, stream: int, segment: bool = False) -> int:
+    """Device pointer of T1's scratch for n rows (of its three systems in
+    the segment mode) on one stream of ``device``: 8 floats a segment of
+    the segment solve, or the levels of the multi-level route
+    (``mvtv_xupdate_tridiag_work``, ``..._segment_work``; asked once per
+    n and mode); one buffer per device and stream, grown when a call needs
+    more.  Launches on one stream run in order, so they share it."""
+    need = _TRIDIAG_FLOATS.get((device.index, n, segment))
     if need is None:
-        need = int(lib.mvtv_xupdate_tridiag_work(n))
+        need = int(lib.mvtv_xupdate_tridiag_segment_work(n) if segment
+                   else lib.mvtv_xupdate_tridiag_work(n))
         if need < 0:
             _raise_on(-need, "xupdate_tridiag")
-        _TRIDIAG_FLOATS[(device.index, n)] = need
+        _TRIDIAG_FLOATS[(device.index, n, segment)] = need
     key = (device.index, stream)
     buf = _TRIDIAG_WORK.get(key)
     if buf is None or buf.numel() < need:
@@ -1424,4 +1699,65 @@ def xupdate_tridiag(counts: torch.Tensor, b: torch.Tensor, rho, scale: float) ->
                                    n, stream)
     _raise_on(err, "xupdate_tridiag")
     launch_counts["xupdate_tridiag"] += 1
+    return x
+
+
+def xupdate_tridiag_segment(counts: torch.Tensor, b: torch.Tensor, rho, scale: float,
+                            open_lo: bool, open_hi: bool) -> torch.Tensor:
+    """T1's segment mode, one rank's segment of a chain (solver/tridiag.py::
+    partition_xupdate): x of shape (3, n), the segment's principal
+    submatrix of the chain's system (diag(counts) + (rho s) s T, T's
+    diagonal kept at 2 at the open ends, those inside the chain) solved
+    for b, e_0 and e_{n-1}.  On the card one launch while the segment solve
+    holds the three systems (the multi-level route above runs them one
+    after another); the kernel forms e_0 and e_{n-1} itself, so it reads
+    counts and b only.  The scratch is T1's, grown to fit."""
+    for v in (counts, b):
+        if v.dtype != torch.float32 or v.ndim != 1 or v.shape != b.shape or not v.is_contiguous():
+            raise ValueError(f"expected contiguous float32 counts and b of one shape (n,), got "
+                             f"{v.dtype} {tuple(v.shape)}")
+    n = int(b.shape[0])
+    if _route(counts, b) == "cpu":
+        return xupdate_tridiag_segment_reference(counts, b, rho, scale, open_lo, open_hi)
+    dev = b.device
+    lib = _lib()
+    stream = _stream(dev)
+    x = torch.empty((3, n), dtype=torch.float32, device=dev)
+    err = lib.mvtv_xupdate_tridiag_segment(
+        counts.data_ptr(), b.data_ptr(), _scalar_ptr(rho, dev), float(scale),
+        int(bool(open_lo)) | (int(bool(open_hi)) << 1), x.data_ptr(),
+        _tridiag_work(lib, n, dev, stream, segment=True), n, stream)
+    _raise_on(err, "xupdate_tridiag_segment")
+    launch_counts["xupdate_tridiag_segment"] += 1
+    return x
+
+
+def partition_finish(every: torch.Tensor, rank: int, scale: float,
+                     ylr: torch.Tensor) -> torch.Tensor:
+    """The partition solve's finish on rank ``rank`` (solver/tridiag.py::
+    partition_xupdate): x of shape (n,) from every rank's six segment ends
+    and rho, gathered into ``every`` (W, 7), and this rank's segment solve
+    ``ylr`` (3, n, ``xupdate_tridiag_segment``'s output).  On the card one
+    launch: each CTA solves the 2W-unknown interface system in float64 (g
+    from rank 0's rho, as T1 rounds it) and writes its rows of
+    y + (g x_{k-1}[L]) l + (g x_{k+1}[0]) r; up to 256 ranks."""
+    if every.dtype != torch.float32 or every.ndim != 2 or every.shape[1] != 7 \
+            or not every.is_contiguous():
+        raise ValueError(f"expected contiguous float32 ends of shape (W, 7), got {every.dtype} "
+                         f"{tuple(every.shape)}")
+    if ylr.dtype != torch.float32 or ylr.ndim != 2 or ylr.shape[0] != 3 \
+            or not ylr.is_contiguous():
+        raise ValueError(f"expected a contiguous float32 segment solve of shape (3, n), got "
+                         f"{ylr.dtype} {tuple(ylr.shape)}")
+    w, n = int(every.shape[0]), int(ylr.shape[1])
+    if not 0 <= rank < w:
+        raise ValueError(f"rank {rank} outside a group of {w}")
+    if _route(every, ylr) == "cpu":
+        return partition_finish_reference(every, rank, scale, ylr)
+    dev = ylr.device
+    x = torch.empty(n, dtype=torch.float32, device=dev)
+    err = _lib().mvtv_partition_finish(every.data_ptr(), w, int(rank), float(scale),
+                                       ylr.data_ptr(), x.data_ptr(), n, _stream(dev))
+    _raise_on(err, "partition_finish")
+    launch_counts["partition_finish"] += 1
     return x

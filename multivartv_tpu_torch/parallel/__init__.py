@@ -1,6 +1,7 @@
-"""The sharded fit: a 2-D lattice cut into row slabs over the ranks of a
-torch.distributed process group (NCCL on the card, gloo on the CPU), every
-collective written out.  Counterpart of ``multivartv_tpu/parallel``."""
+"""The sharded fit: a lattice (p = 1, 2 or 3) cut along axis 0 into slabs
+over the ranks of a torch.distributed process group (NCCL on the card,
+gloo on the CPU), every collective written out.  Counterpart of
+``multivartv_tpu/parallel``."""
 
 from multivartv_tpu_torch.parallel.sharding import (RowGroup, RowSlab, make_device_mesh,
                                                     shard_problem, shard_state)

@@ -1,15 +1,21 @@
-"""The cross-validated fit with the lattice cut into row slabs over ranks.
+"""The cross-validated fit with the lattice cut into slabs over ranks.
 
 Counterpart of ``multivartv_tpu/parallel/fit.py``: ``mvtv_sharded`` runs
 the whole product path (lambda_max, the lambda grid, k-fold CV, the full
 path, the refit; mbs_impl, solvers.cpp:305-376) with theta and every
-lattice-shaped operand of the solve cut into row slabs, one per rank of a
-row group (parallel/sharding.py).  The JAX package leaves every
-collective to the XLA SPMD partitioner; here the solver's shard route
-(solver/admm.py) writes them out: halo rows around the row-slab kernels
-B8s and B9s (parallel/tiled_shard.py), sums over the group for every dot,
-norm and Boyd statistic, and the pencil transposes of the DCT
-preconditioner (parallel/halo.py).
+lattice-shaped operand of the solve cut along axis 0 into slabs, one per
+rank of a row group (parallel/sharding.py): row slabs at p = 2, plane
+slabs at p = 3, segments of the chain at p = 1.  The JAX package leaves
+every collective to the XLA SPMD partitioner; here the solver's shard
+route (solver/admm.py) writes them out: halo rows or planes around the
+slab kernels (B8s and B9s at p = 2, B12s and B13s at p = 3;
+parallel/tiled_shard.py), the halo knot of the plain p = 1 stages and the
+partition solve's gather of the segments' end values
+(solver/tridiag.py), sums over the group for every dot, norm and Boyd
+statistic, and the pencil transposes of the DCT preconditioner
+(parallel/halo.py).  p >= 4, the reduced block set, 2-D process grids,
+the fold axis dp and the spectral CG across ranks raise
+NotImplementedError (ROADMAP A11).
 
 Set-up is whole on every rank: each rank bins all the data, builds the
 global operators and takes lambda_max (float64) from the whole problem,
@@ -39,16 +45,17 @@ from multivartv_tpu_torch.utils.logging import get_logger
 
 def default_lattice_mesh(p: int, dp: int = 1, group=None) -> Tuple[RowGroup, Tuple[str, ...]]:
     """(row group, axis names): every rank of the group (None: the default
-    one) on the row axis "sx" of a (dp, sx, sy) mesh with sy = 1.  The JAX
-    package factors its devices over sx and sy; the port cuts rows only,
-    and its fold axis dp is 1."""
-    if p != 2:
-        raise NotImplementedError(f"the sharded fit cuts 2-D lattices into row slabs; p = {p} "
-                                  "is not ported")
+    one) on the axis "sx" of a (dp, sx) mesh at p = 1 (the JAX package's
+    sequence-parallel layout) or a (dp, sx, sy) mesh with sy = 1 at p = 2
+    and 3.  The JAX package factors its devices over sx and sy; the port
+    cuts axis 0 only, and its fold axis dp is 1."""
+    if p not in (1, 2, 3):
+        raise NotImplementedError(f"the sharded fit cuts lattices of p = 1, 2 and 3; p = {p} "
+                                  "is not ported (ROADMAP A11)")
     if dp != 1:
         raise NotImplementedError("the fold axis dp is not ported: the folds run one after "
-                                  "another")
-    names = ("dp", "sx", "sy")
+                                  "another (ROADMAP A11)")
+    names = ("dp", "sx") if p == 1 else ("dp", "sx", "sy")
     import torch.distributed as dist
     size = dist.get_world_size(group) if dist.is_available() and dist.is_initialized() else 1
     return make_device_mesh((size,), ("sx",), group=group), names
@@ -70,9 +77,9 @@ def _sharded_solver_config(cfg: SolverConfig, device_mesh: Optional[RowGroup] = 
     if device_mesh is None:
         device_mesh = make_device_mesh()
     if spatial_axes is not None and len(spatial_axes) > 1 and device_mesh.size > 1 \
-            and spatial_axes[1] == device_mesh.axis_name:
-        raise NotImplementedError("the port cuts lattices into row slabs; sharding the "
-                                  "column axis (a 2-D process grid) is not ported")
+            and device_mesh.axis_name in tuple(spatial_axes)[1:]:
+        raise NotImplementedError("the port cuts lattices along axis 0; sharding another "
+                                  "axis (a 2-D process grid) is not ported (ROADMAP A11)")
     key = tiled_shard.register_shard_mesh(device_mesh)
     if cfg.tiled_shard_key != key:
         changes["tiled_shard_key"] = key
@@ -86,15 +93,16 @@ def _sharded_solver_config(cfg: SolverConfig, device_mesh: Optional[RowGroup] = 
 
 
 def shard_operators(ops: Operators, slab: RowSlab) -> Operators:
-    """The operators of one rank's row slab: gram_eigs cut to its column
-    slab (the pencil layout in which the DCT preconditioner divides),
-    gram_diagonal to its row slab, the dense DCT matrices (per-axis) whole,
-    and the spectral-correction CG's operand sets dropped (the shard route
-    runs the plain PCG, which reads none of them)."""
+    """The operators of one rank's slab: gram_eigs cut to its pencil (the
+    layout in which the DCT preconditioner divides; whole at p = 1, which
+    has no pencil), gram_diagonal to its slab, the dense DCT matrices
+    (per-axis) whole, and the spectral-correction CG's operand sets
+    dropped (the shard route runs the plain PCG, which reads none of
+    them).  At p = 1 the partition solve reads the scales only."""
     if tuple(ops.m) != tuple(slab.m):
         raise ValueError(f"operators of {ops.m} cut over a layout of {slab.m}")
     return dataclasses.replace(
-        ops, gram_eigs=slab.cols(ops.gram_eigs),
+        ops, gram_eigs=ops.gram_eigs if len(ops.m) == 1 else slab.cols(ops.gram_eigs),
         gram_diagonal=None if ops.gram_diagonal is None else slab.rows(ops.gram_diagonal),
         dct_mats_lp=None, dct_halves=None, dct_halves_lp=None, gram_eigs_packed=None,
         gram_eigs_blocked=None, gram_eigs_blocked_lp=None, dct_quarters_lp=None,
@@ -118,17 +126,17 @@ def mvtv_sharded(data, y, m=None, mesh=None, n_lambda: int = 100, ftrue=None, la
                  path_config: Optional[PathConfig] = None, cv_config: Optional[CVConfig] = None,
                  mesh_config: MeshConfig = DEFAULT_MESH, device="cuda"):
     """mvtv (api.mvtv's arguments and MVTVModel) with the lattice cut into
-    row slabs over a row group; every rank calls it with the same data and
-    returns the same model (see the module doc).
+    slabs along axis 0 over a row group (p = 1, 2 or 3); every rank calls
+    it with the same data and returns the same model (see the module doc).
 
     device_mesh: a RowGroup (parallel.sharding.make_device_mesh); None:
         every rank of the default process group (parallel.distributed.
         init_distributed first for more than one process; without one, this
         process alone).  Each rank's device is ``device`` (with NCCL, one card
         per rank: pass "cuda:<rank>" or set the current device).
-    spatial_axes: mesh-axis names per lattice axis; only the row axis may
-        be cut.  batch_axis: accepted for the JAX signature; the folds run
-        one after another."""
+    spatial_axes: mesh-axis names per lattice axis; only axis 0 may be
+        cut.  batch_axis: accepted for the JAX signature; the folds run one
+        after another."""
     from multivartv_tpu_torch.api import LatticeCut, _cross_validated_fit, _fit_configs, _setup
 
     if solver_config is None:
@@ -141,8 +149,10 @@ def mvtv_sharded(data, y, m=None, mesh=None, n_lambda: int = 100, ftrue=None, la
         device_mesh, _ = default_lattice_mesh(len(spec.m))
     solver_config = _sharded_solver_config(solver_config, device_mesh, spatial_axes)
     if not tiled_shard.shard_supported(spec.m, ops.binaries, solver_config.tiled_shard_key):
-        raise NotImplementedError(f"the row-slab route takes p = 2 with the full block set "
-                                  f"(got m = {spec.m}, {len(ops.binaries)} blocks)")
+        raise NotImplementedError(f"the sharded route takes p = 1, 2 or 3 with the full block "
+                                  f"set, at least one index of axes 0 and 1 (two knots at "
+                                  f"p = 1) per rank (got m = {spec.m}, {len(ops.binaries)} "
+                                  f"blocks, {device_mesh.size} ranks; ROADMAP A11)")
     slab = RowSlab(device_mesh, spec.m)
     cut = LatticeCut(grid=lambda g: _broadcast(g, device_mesh),
                      operators=lambda o: shard_operators(o, slab),

@@ -7,21 +7,24 @@ partitioner; the port has no partitioner, so every collective of the
 sharded fit lives in this module, on ``torch.distributed``:
 
   * the halo exchange: ``halo_rows`` hands each rank its neighbours'
-    boundary rows of several row slabs at once (one ``batch_isend_irecv``),
-    zeros at the global edges; ``dist_shift_down`` / ``dist_shift_up`` are
-    the JAX package's global circular shifts along the row axis;
+    boundary rows (planes at p = 3, knots at p = 1) of several slabs at
+    once (one ``batch_isend_irecv``), zeros at the global edges;
+    ``dist_shift_down`` / ``dist_shift_up`` are the JAX package's global
+    circular shifts along the row axis;
   * sums and maxima over the row group (``psum``, ``pmax``): every CG dot,
     every norm and the Boyd sums, so that each host decision (a loop
     predicate, rho adaptation, the NaN guard) reads the same value on every
     rank and no rank takes another branch;
   * the pencil transposes ``rows_to_cols`` / ``cols_to_rows``
-    (``all_to_all_single``): the DCT preconditioner transforms axis 1 on the
-    row slabs and axis 0 on column slabs;
+    (``all_to_all_single``): the DCT preconditioner transforms axis 1 (and
+    axis 2 at p = 3) on the slabs and axis 0 on the pencils, slabs of axis
+    1 with axis 0 whole;
   * ``gather_rows`` (every rank gets the whole lattice) and
     ``gather_fitted`` (every rank gets every sample's fitted value).
 
-A group of size 1 makes no call.  The stencils of the operator D on row
-slabs (``slab_apply_D``, ``slab_apply_Dt``) exchange one halo row.
+A group of size 1 makes no call.  The stencils of the operator D on the
+slabs (``slab_apply_D``, ``slab_apply_Dt``; p = 1, 2 and 3) exchange one
+halo row, plane or knot.
 
 ``sharded_admm_solve`` is the JAX package's explicit solver: p = 2, the
 full block set, Jacobi-preconditioned CG with every collective by hand,
@@ -35,10 +38,12 @@ from __future__ import annotations
 import math
 from typing import List, NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from multivartv_tpu_torch.config import SolverConfig
+from multivartv_tpu_torch.ops import diff as diff_ops
 from multivartv_tpu_torch.ops import kernels as K
 from multivartv_tpu_torch.parallel.sharding import RowGroup, RowSlab
 
@@ -122,54 +127,61 @@ def dist_shift_up(x: torch.Tensor, grp: RowGroup) -> torch.Tensor:
 
 
 def gather_rows(x: torch.Tensor, slab: RowSlab) -> torch.Tensor:
-    """The whole lattice on every rank from each rank's row slab x (a
-    leading batch axis stays)."""
+    """The whole lattice on every rank from each rank's slab x (a leading
+    batch axis stays)."""
     grp = slab.group
     if grp.size == 1:
         return x
+    axis = x.ndim - len(slab.m)
     rows = slab.row_counts
-    top = max(rows)
-    pad = torch.zeros(x.shape[:-2] + (top,) + x.shape[-1:], dtype=x.dtype, device=x.device)
-    pad[..., :x.shape[-2], :] = x
+    shape = list(x.shape)
+    shape[axis] = max(rows)
+    pad = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    pad.narrow(axis, 0, x.shape[axis]).copy_(x)
     out = [torch.empty_like(pad) for _ in range(grp.size)]
     dist.all_gather(out, pad, group=grp.group)
-    return torch.cat([o[..., :r, :] for o, r in zip(out, rows)], dim=-2)
+    return torch.cat([o.narrow(axis, 0, r) for o, r in zip(out, rows)], dim=axis)
 
 
 def rows_to_cols(x: torch.Tensor, slab: RowSlab) -> torch.Tensor:
-    """(rows, m1) row slab -> (m0, cols) column slab of the same lattice."""
+    """(rows, m1[, m2]) slab -> (m0, cols[, m2]) pencil of the same
+    lattice (p >= 2)."""
     grp = slab.group
     if grp.size == 1:
         return x
     rows, cols = slab.row_counts, slab.col_counts
     mine_r, mine_c = rows[grp.rank], cols[grp.rank]
+    rest = int(np.prod(slab.m[2:], dtype=np.int64))
     send = torch.cat([blk.reshape(-1) for blk in x.split(list(cols), dim=1)])
-    out = torch.empty(slab.m[0] * mine_c, dtype=x.dtype, device=x.device)
-    dist.all_to_all_single(out, send, output_split_sizes=[r * mine_c for r in rows],
-                           input_split_sizes=[mine_r * c for c in cols], group=grp.group)
-    return out.view(slab.m[0], mine_c)
+    out = torch.empty(slab.m[0] * mine_c * rest, dtype=x.dtype, device=x.device)
+    dist.all_to_all_single(out, send, output_split_sizes=[r * mine_c * rest for r in rows],
+                           input_split_sizes=[mine_r * c * rest for c in cols], group=grp.group)
+    return out.view(slab.pencil_shape)
 
 
 def cols_to_rows(x: torch.Tensor, slab: RowSlab) -> torch.Tensor:
-    """(m0, cols) column slab -> (rows, m1) row slab of the same lattice."""
+    """(m0, cols[, m2]) pencil -> (rows, m1[, m2]) slab of the same
+    lattice (p >= 2)."""
     grp = slab.group
     if grp.size == 1:
         return x
     rows, cols = slab.row_counts, slab.col_counts
     mine_r, mine_c = rows[grp.rank], cols[grp.rank]
-    out = torch.empty(mine_r * slab.m[1], dtype=x.dtype, device=x.device)
+    tail = tuple(slab.m[2:])
+    rest = int(np.prod(tail, dtype=np.int64))
+    out = torch.empty(mine_r * slab.m[1] * rest, dtype=x.dtype, device=x.device)
     dist.all_to_all_single(out, x.contiguous().reshape(-1),
-                           output_split_sizes=[mine_r * c for c in cols],
-                           input_split_sizes=[r * mine_c for r in rows], group=grp.group)
-    return torch.cat([blk.view(mine_r, c) for blk, c in zip(out.split(
-        [mine_r * c for c in cols]), cols)], dim=1)
+                           output_split_sizes=[mine_r * c * rest for c in cols],
+                           input_split_sizes=[r * mine_c * rest for r in rows], group=grp.group)
+    return torch.cat([blk.view((mine_r, c) + tail) for blk, c in zip(out.split(
+        [mine_r * c * rest for c in cols]), cols)], dim=1)
 
 
 def gather_fitted(theta: torch.Tensor, flat_idx: torch.Tensor, slab: RowSlab) -> torch.Tensor:
-    """O theta on every rank from each rank's row slab: each rank fills the
-    samples whose knot lies in its rows, and the sum over the group (one
+    """O theta on every rank from each rank's slab: each rank fills the
+    samples whose knot lies in its slab, and the sum over the group (one
     nonzero term per sample) gives every value exactly."""
-    lo = slab.row_off * slab.m[1]
+    lo = slab.row_off * int(np.prod(slab.m[1:], dtype=np.int64))
     local = flat_idx - lo
     mine = (local >= 0) & (local < theta.numel())
     vals = theta.reshape(-1)[local.clamp(0, theta.numel() - 1)]
@@ -177,12 +189,14 @@ def gather_fitted(theta: torch.Tensor, flat_idx: torch.Tensor, slab: RowSlab) ->
 
 
 # ---------------------------------------------------------------------------
-# D and D' on row slabs (p = 2, the full block set)
+# D and D' on the slabs (the full block set)
 # ---------------------------------------------------------------------------
 
 def slab_apply_D(theta: torch.Tensor, slab: RowSlab, scales) -> Tuple[torch.Tensor, ...]:
-    """The three blocks of D theta on this rank's rows (the row below from
-    the next rank)."""
+    """The blocks of D theta on this rank's slab (the row, plane or knot
+    above from the next rank)."""
+    if len(slab.m) != 2:
+        return _slab_apply_D(theta, slab, scales)
     top, bot = halo_pair(theta, slab.group)
     panel = K._slab_panel(theta, top, bot)
     mask0, mask1, _ = K._slab_masks(panel, slab.row_off, slab.m[0])
@@ -193,13 +207,44 @@ def slab_apply_D(theta: torch.Tensor, slab: RowSlab, scales) -> Tuple[torch.Tens
 
 
 def slab_apply_Dt(blocks, slab: RowSlab, scales) -> torch.Tensor:
-    """D' of three row-slab blocks on this rank's rows (the mixed and axis-0
-    blocks' rows above from the previous rank)."""
+    """D' of the blocks on this rank's slab (the blocks with an axis-0
+    part: their row, plane or knot below from the previous rank)."""
+    if len(slab.m) != 2:
+        return _slab_apply_Dt(blocks, slab, scales)
     b0, b1, b2 = blocks
     (t0, t2), _ = halo_rows(slab.group, [b0, b2])
     zero = torch.zeros_like(b1[:1])
     return K._adjD(torch.cat([t0, b0]), torch.cat([zero, b1]), torch.cat([t2, b2]),
                    scales)[1:]
+
+
+def _slab_apply_D(theta, slab: RowSlab, scales):
+    """slab_apply_D at p = 1 and 3: each block's forward chain on the
+    slab's panel (its planes -1 .. rows), the axis-0 mask on the global
+    planes, as ops/diff.py::apply_D computes it on the whole lattice."""
+    binaries = diff_ops.fd_binaries(len(slab.m))
+    top, bot = halo_pair(theta, slab.group)
+    panel = torch.cat([top, theta, bot])
+    mask0 = K._global_mask0(panel, slab.row_off, slab.m[0])
+    return tuple(s * K._panel_block(panel, b, mask0)[1:-1] for b, s in zip(binaries, scales))
+
+
+def _slab_apply_Dt(blocks, slab: RowSlab, scales):
+    """slab_apply_Dt at p = 1 and 3: each block's adjoint chain, the blocks
+    with an axis-0 part on their panel (the plane below from the previous
+    rank), added in fd_binaries order as apply_Dt adds them."""
+    binaries = diff_ops.fd_binaries(len(slab.m))
+    down = [k for k, b in enumerate(binaries) if b[0]]
+    tops, _ = halo_rows(slab.group, [blocks[k] for k in down])
+    below = dict(zip(down, tops))
+    out = None
+    for k, (a, b, s) in enumerate(zip(blocks, binaries, scales)):
+        if b[0]:
+            term = s * diff_ops.adjoint_block(torch.cat([below[k], a]), b)[1:]
+        else:
+            term = s * diff_ops.adjoint_block(a, b)
+        out = term if out is None else out + term
+    return out
 
 
 # ---------------------------------------------------------------------------

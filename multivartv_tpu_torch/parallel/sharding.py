@@ -6,18 +6,21 @@ XLA SPMD partitioner insert every collective.  PyTorch has no partitioner,
 so the port holds each rank's part of a lattice as a tensor of its own and
 writes every collective out (parallel/halo.py).  Its one layout is the one
 in which the JAX package runs its shard kernels (parallel/fit.py,
-``_sharded_solver_config``): a 2-D lattice cut into ROW slabs, one per rank
-of a row group, the column axis whole on every rank.
+``_sharded_solver_config``): a lattice cut along axis 0 into slabs, one per
+rank of a row group, the other axes whole on every rank.  At p = 2 the
+slabs are row slabs, at p = 3 plane slabs, at p = 1 segments of the chain
+(the JAX package's sequence-parallel regime, fit.py:52-72).
 
   * ``RowGroup``: a torch.distributed process group (None: the default
     group) whose ranks each hold one row slab; the counterpart of a mesh
     with one lattice axis.  A group of size 1 needs no initialized process
     group and makes no collective call.
-  * ``RowSlab``: the layout of one lattice of dims m over a row group.  Rows
-    and columns are split as evenly as ``np.array_split`` splits them; a
-    rank's slab is rows [row_off, row_off + rows) of m[0].  The DCT
-    preconditioner's axis-0 transform runs in the column ("pencil") layout,
-    columns [col_off, col_off + cols) of m[1] on every row.
+  * ``RowSlab``: the layout of one lattice of dims m (p = 1, 2 or 3) over a
+    row group.  Axes 0 and 1 are split as evenly as ``np.array_split``
+    splits them; a rank's slab is indices [row_off, row_off + rows) of
+    axis 0, every other axis whole.  At p >= 2 the DCT preconditioner's
+    axis-0 transform runs in the "pencil" layout, indices [col_off, col_off
+    + cols) of axis 1 with axis 0 (and axis 2) whole; p = 1 has no pencil.
   * ``shard_problem`` and ``shard_state`` cut lattice arrays (counts, O'y,
     theta, every alpha and u block, the adjoint carries) to this rank's
     slab; per-sample arrays (flat_idx, y, train_mask) and scalars stay whole
@@ -66,18 +69,22 @@ def _split(n: int, parts: int) -> Tuple[int, ...]:
 
 @dataclasses.dataclass(frozen=True)
 class RowSlab:
-    """This rank's row slab of a 2-D lattice of dims m over a row group
-    (see the module doc)."""
+    """This rank's slab of a lattice of dims m over a row group (see the
+    module doc)."""
 
     group: RowGroup
-    m: Tuple[int, int]
+    m: Tuple[int, ...]
 
     def __post_init__(self):
-        if len(self.m) != 2:
-            raise ValueError(f"the row-slab layout cuts 2-D lattices, got m = {self.m}")
-        if min(self.m) < self.group.size:
-            raise ValueError(f"a {self.m} lattice has fewer rows or columns than the "
-                             f"{self.group.size} ranks of its row group")
+        p, n = len(self.m), self.group.size
+        if p not in (1, 2, 3):
+            raise ValueError(f"the slab layout cuts lattices of p = 1, 2 or 3, got m = {self.m}")
+        if p == 1 and self.m[0] < 2 * n:
+            raise ValueError(f"a chain of {self.m[0]} knots has fewer than two for each of the "
+                             f"{n} ranks of its row group")
+        if p > 1 and min(self.m[:2]) < n:
+            raise ValueError(f"a {self.m} lattice has fewer indices along axis 0 or 1 than the "
+                             f"{n} ranks of its row group")
 
     @property
     def row_counts(self) -> Tuple[int, ...]:
@@ -85,6 +92,7 @@ class RowSlab:
 
     @property
     def col_counts(self) -> Tuple[int, ...]:
+        """The pencil layout's cut of axis 1 (p >= 2)."""
         return _split(self.m[1], self.group.size)
 
     @property
@@ -96,21 +104,24 @@ class RowSlab:
         return sum(self.col_counts[:self.group.rank])
 
     @property
-    def shape(self) -> Tuple[int, int]:
+    def shape(self) -> Tuple[int, ...]:
         """The local slab's shape."""
-        return (self.row_counts[self.group.rank], self.m[1])
+        return (self.row_counts[self.group.rank],) + tuple(self.m[1:])
+
+    @property
+    def pencil_shape(self) -> Tuple[int, ...]:
+        """The local pencil's shape (p >= 2)."""
+        return (self.m[0], self.col_counts[self.group.rank]) + tuple(self.m[2:])
 
     def rows(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's rows of a global lattice array (a contiguous copy);
+        """This rank's slab of a global lattice array (a contiguous copy);
         a leading batch axis stays."""
-        lo = self.row_off
-        return x[..., lo:lo + self.shape[0], :].contiguous()
+        return x.narrow(x.ndim - len(self.m), self.row_off, self.shape[0]).contiguous()
 
     def cols(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's columns of a global lattice array (the pencil
-        layout)."""
-        lo = self.col_off
-        return x[..., lo:lo + self.col_counts[self.group.rank]].contiguous()
+        """This rank's pencil of a global lattice array (axis 1 cut)."""
+        return x.narrow(x.ndim - len(self.m) + 1, self.col_off,
+                        self.col_counts[self.group.rank]).contiguous()
 
 
 def make_device_mesh(shape: Sequence[int] = None, axis_names: Sequence[str] = ("sx",),

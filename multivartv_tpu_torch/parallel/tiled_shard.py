@@ -1,18 +1,23 @@
-"""The row-slab kernels of the sharded route: halo exchange, kernel, sum.
+"""The slab kernels of the sharded route: halo exchange, kernel, sum.
 
 Counterpart of ``multivartv_tpu/parallel/tiled_shard.py``, whose
 shard_map wrappers run the tiled Pallas kernels per shard of a row-sharded
-lattice.  Here each rank holds its row slab as a tensor of its own, and
-each wrapper (1) exchanges the halo rows with the neighbouring ranks
-(parallel/halo.py, one call for all of the kernel's inputs; zeros at the
-global edges), (2) launches the row-slab kernel on the slab (B8s, B9s or
-B11s, ops/kernels.py; the plain version on CPU tensors), and (3) for B8s
-sums the five Boyd partial sums over the row group (the JAX package's
-``psum``).  A group of size 1 makes no call, and the kernels then compute
-their whole-lattice twins' function on the whole lattice.
+lattice.  Here each rank holds its slab as a tensor of its own, and each
+wrapper (1) exchanges the halo rows (planes at p = 3) with the
+neighbouring ranks (parallel/halo.py, one call for all of the kernel's
+inputs; zeros at the global edges), (2) launches the slab kernel on the
+slab (B8s, B9s or B11s at p = 2; B12s or B13s at p = 3; ops/kernels.py;
+the plain version on CPU tensors), and (3) for B8s and B12s sums the five
+Boyd partial sums over the row group (the JAX package's ``psum``).  A
+group of size 1 makes no call, and the kernels then compute their
+whole-lattice twins' function on the whole lattice.
 
-Scope, as the JAX package's: p = 2, the full block set, the lattice cut
-over rows only.  The row group rides in ``SolverConfig.tiled_shard_key``
+Scope: the full block set, the lattice cut along axis 0 only; p = 2 as the
+JAX package's shard kernels, p = 3 where the JAX package leaves the
+stages to its SPMD partitioner (no Pallas kernel), and p = 1, whose
+stages are plain and whose x-update is the partition solve
+(solver/tridiag.py; no slab kernel here).  The row group rides in
+``SolverConfig.tiled_shard_key``
 as a small integer key into a registry (``register_shard_mesh``), as the
 JAX package keeps its mesh out of the frozen config; the solver's
 operators carry the lattice's ``RowSlab`` (solver/problem.py), which the
@@ -49,14 +54,18 @@ def get_shard_ctx(key: int) -> Tuple[RowGroup, str]:
 
 
 def shard_supported(m, binaries, key: Optional[int]) -> bool:
-    """The row-slab kernels apply: a registered key, p == 2, the full block
-    set, and at least one row and one column per rank (the JAX package's
-    further alignment rules are the TPU's)."""
+    """The sharded route applies: a registered key, p in (1, 2, 3), the
+    full block set, and at least one index of axes 0 and 1 per rank (two
+    knots per rank at p = 1; the JAX package's further alignment rules are
+    the TPU's)."""
     if key is None or key not in _REGISTRY:
         return False
-    if len(m) != 2 or len(binaries) != 3:
+    p, size = len(m), _REGISTRY[key].size
+    if p not in (1, 2, 3) or len(binaries) != 2 ** p - 1:
         return False
-    return min(int(v) for v in m) >= _REGISTRY[key].size
+    if p == 1:
+        return int(m[0]) >= 2 * size
+    return min(int(v) for v in m[:2]) >= size
 
 
 def dual_update_tiled_2d_sharded(slab: RowSlab, theta, u, kappa, scales, u_scale=None,
@@ -91,4 +100,33 @@ def gram_matvec_tiled_2d_sharded(slab: RowSlab, v, counts, rho, scales):
     in its matvec mode): the sharded PCG's matvec."""
     top, bot = halo_pair(v, slab.group)
     return K.gram_matvec_tiled_2d_shard(v, top, bot, slab.row_off, slab.m[0], counts, rho,
+                                        scales)
+
+
+def dual_update_tiled_3d_sharded(slab: RowSlab, theta, u, kappa, scales, u_scale=None,
+                                 true_m: Optional[tuple] = None, want_adjoints: bool = False,
+                                 want_alpha: bool = True):
+    """B12s on this rank's plane slab with its halo planes, the stats summed
+    over the group: dual_update_tiled_3d's contract on plane slabs."""
+    tops, bots = halo_rows(slab.group, [theta, *u])
+    outs = K.dual_update_tiled_3d_shard(theta, u, tops, bots, slab.row_off, slab.m[0], kappa,
+                                        scales, u_scale=u_scale, true_m=true_m,
+                                        want_adjoints=want_adjoints, want_alpha=want_alpha)
+    return outs[:2] + (psum(outs[2], slab.group),) + outs[3:]
+
+
+def gram_residual_tiled_3d_sharded(slab: RowSlab, b, v, counts, rho, scales, rhs_parts=None):
+    """B13s on this rank's plane slab with v's halo planes: r0 = b - (counts
+    + rho D'D) v, b given or formed in the kernel from rhs_parts = (oty,
+    dta, u_scale, dtu)."""
+    top, bot = halo_pair(v, slab.group)
+    return K.gram_residual_tiled_3d_shard(b, v, top, bot, slab.row_off, slab.m[0], counts,
+                                          rho, scales, rhs_parts=rhs_parts)
+
+
+def gram_matvec_tiled_3d_sharded(slab: RowSlab, v, counts, rho, scales):
+    """(counts + rho D'D) v on this rank's plane slab with v's halo planes
+    (B13s in its matvec mode): the sharded PCG's matvec at p = 3."""
+    top, bot = halo_pair(v, slab.group)
+    return K.gram_matvec_tiled_3d_shard(v, top, bot, slab.row_off, slab.m[0], counts, rho,
                                         scales)

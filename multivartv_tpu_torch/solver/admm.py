@@ -79,14 +79,18 @@ tests walk the card's route; only each kernel wrapper looks at the device):
   * exact route (``use_kernels=False``): per-iteration plain PyTorch with
     the tolerance-driven float32 PCG (or the configured x-solver), the
     explicit comparison arm.
-  * shard route: operators cut to row slabs over a row group
+  * shard route: operators cut to slabs along axis 0 over a row group
     (parallel/fit.py::shard_operators, ``SolverConfig.tiled_shard_key``;
-    the JAX package's ``_tiled_shard_active``, admm.py:158-171): one
-    iteration at a time, the sharded x-update (xupdate.py, B9s's r0), then
-    ``dual_update_tiled_2d_shard`` (B8s) with the dta/dtu carries and the
-    alpha stores skipped, alpha refreshed after the loop, as on the tiled
-    route; every lattice sum over the row group, no padding, no escape (the
-    x-update is float32).
+    the JAX package's ``_tiled_shard_active``, admm.py:158-171, at p = 2,
+    its SPMD route at p = 1 and 3): one iteration at a time.  At p = 2 and
+    3 the sharded x-update (xupdate.py, B9s's or B13s's r0), then
+    ``dual_update_tiled_2d_shard`` (B8s) or ``dual_update_tiled_3d_shard``
+    (B12s) with the dta/dtu carries and the alpha stores skipped, alpha
+    refreshed after the loop, as on the tiled routes; at p = 1 a plain rhs
+    and dual stage with the halo knot around the partition solve
+    (solver/tridiag.py::partition_xupdate, T1 on each segment), as the
+    "tridiag" route's.  Every lattice sum runs over the row group; no
+    padding, no escape (the x-updates are float32).
 
 Batched solves (``admm_solve_batched``: the CV folds and lambda sweeps) run
 B problems at once through ``admm_iters_2d_batched`` (B5) on the kernel
@@ -154,8 +158,9 @@ ESCAPE_STALL_ITERS = 200
 ESCAPE_IMPROVEMENT = 0.99
 
 
-# The routes whose dual kernel writes the dta/dtu carries and skips alpha,
-# and the routes of the spectral-correction CG.
+# The routes whose dual kernel writes the dta/dtu carries and skips alpha
+# (the shard route at p >= 2, _carries), and the routes of the
+# spectral-correction CG.
 CARRY_ROUTES = ("tiled", "tiled3", "shard")
 PLAIN_SPECTRAL_ROUTES = ("spectral2", "spectral3", "spectralN")
 SPECTRAL_ROUTES = ("tiled", "tiled3") + PLAIN_SPECTRAL_ROUTES
@@ -280,8 +285,9 @@ def solve_route(ops: Operators, cfg: SolverConfig) -> Optional[str]:
     """The route of a solve on the lattice of ops (after padding): None
     (the exact-f32 route), "tridiag" (p = 1 under dct_pcg: T1), "whole",
     "tiled", "spectral2", "tiled3", "spectral3" or "spectralN"
-    (lattice_route), or "shard" for operators cut to row slabs (a sharded
-    fit, whatever use_kernels says: the row slabs have no other route)."""
+    (lattice_route), or "shard" for operators cut to slabs (a sharded fit
+    at p = 1, 2 or 3, whatever use_kernels says: the slabs have no other
+    route)."""
     if ops.slab is not None:
         from multivartv_tpu_torch.parallel import tiled_shard
         key = cfg.tiled_shard_key
@@ -314,10 +320,17 @@ def fused_chunks(ops: Operators, cfg: SolverConfig) -> bool:
             and ops.dct_halves_lp is not None and xupdate_supported(ops.m))
 
 
+def _carries(ops: Operators, route: Optional[str]) -> bool:
+    """Whether a route's dual kernel carries dta/dtu: the tiled routes, and
+    the shard route at p >= 2 (at p = 1 its stages are plain)."""
+    return route in CARRY_ROUTES and not (route == "shard" and len(ops.m) == 1)
+
+
 def tiled_route(ops: Operators, cfg: SolverConfig) -> bool:
     """Whether the solve runs the tiled kernels (2-D above 2^20 knots, 3-D
-    from TILED3_MIN_KNOTS): the routes with the dta/dtu carries."""
-    return solve_route(ops, cfg) in CARRY_ROUTES
+    from TILED3_MIN_KNOTS, the slab kernels): the routes with the dta/dtu
+    carries."""
+    return _carries(ops, solve_route(ops, cfg))
 
 
 def _seed_adjoints(ops: Operators, state: ADMMState) -> ADMMState:
@@ -361,8 +374,8 @@ def make_admm_iteration(ops: Operators, problem: Problem, lam: torch.Tensor,
     runs over the row group (parallel/halo.py), so that each rank reads the
     same norms and takes the same branches."""
     route = solve_route(ops, cfg)
-    tiled = route in CARRY_ROUTES
-    kernel_stats = route in ("whole",) + CARRY_ROUTES
+    tiled = _carries(ops, route)
+    kernel_stats = route == "whole" or tiled
     one_kernel = route == "whole" and xupdate_supported(ops.m)
     # counts in the spectral CG's layout, only where that CG runs (JAX
     # admm.py:279-282).
@@ -377,6 +390,14 @@ def make_admm_iteration(ops: Operators, problem: Problem, lam: torch.Tensor,
     cbar = ops.total(problem.counts) / ops.ntheta
     wmasks = _true_masks(ops, true_m, dtype, problem.oty.device)
     kern_tm = tuple(true_m) if wmasks is not None else None
+    if ops.slab is None:
+        def gsum(x):
+            return x
+    else:
+        from multivartv_tpu_torch.parallel.halo import psum
+
+        def gsum(x):
+            return psum(x, ops.slab.group)
 
     def body(s: ADMMState) -> ADMMState:
         dta = dtu = None
@@ -389,7 +410,9 @@ def make_admm_iteration(ops: Operators, problem: Problem, lam: torch.Tensor,
                                    rhs_parts=(problem.oty, s.dta, s.u_scale, s.dtu))
             if route == "shard":
                 from multivartv_tpu_torch.parallel import tiled_shard
-                dual = functools.partial(tiled_shard.dual_update_tiled_2d_sharded, ops.slab)
+                dual = functools.partial(tiled_shard.dual_update_tiled_3d_sharded
+                                         if len(ops.m) == 3 else
+                                         tiled_shard.dual_update_tiled_2d_sharded, ops.slab)
             else:
                 dual = (kernels.dual_update_tiled_3d if route == "tiled3"
                         else kernels.dual_update_tiled_2d)
@@ -430,16 +453,16 @@ def make_admm_iteration(ops: Operators, problem: Problem, lam: torch.Tensor,
             primal_res = tuple(a - dt for a, dt in zip(alpha, d_theta))
             u = tuple(w + r for w, r in zip(u_eff, primal_res))
             dual_res = s.rho * ops.apply_Dt(primal_res)
-            primal_norm = torch.sqrt(diff_ops.blocks_norm_sq(primal_res))
-            dual_norm = torch.sqrt(torch.sum(torch.square(dual_res)))
-            dtu_norm = torch.sqrt(torch.sum(torch.square(ops.apply_Dt(u))))
+            primal_norm = torch.sqrt(gsum(diff_ops.blocks_norm_sq(primal_res)))
+            dual_norm = torch.sqrt(gsum(torch.sum(torch.square(dual_res))))
+            dtu_norm = torch.sqrt(gsum(torch.sum(torch.square(ops.apply_Dt(u)))))
             if wmasks is not None:
                 d_theta = tuple(dt * wm for dt, wm in zip(d_theta, wmasks))
                 alpha_w = tuple(a * wm for a, wm in zip(alpha, wmasks))
             else:
                 alpha_w = alpha
-            d_theta_norm = torch.sqrt(diff_ops.blocks_norm_sq(d_theta))
-            alpha_norm = torch.sqrt(diff_ops.blocks_norm_sq(alpha_w))
+            d_theta_norm = torch.sqrt(gsum(diff_ops.blocks_norm_sq(d_theta)))
+            alpha_norm = torch.sqrt(gsum(diff_ops.blocks_norm_sq(alpha_w)))
         eps_dual = tol * (sqrt_ntheta + dtu_norm)
         eps_primal = tol * (sqrt_rowsd + torch.maximum(d_theta_norm, alpha_norm))
         rho, new_scale = kernels.adapt_rho(s.rho, primal_norm, dual_norm, cfg.adapt_tau,
@@ -588,7 +611,7 @@ def admm_solve(ops: Operators, problem: Problem, lam: torch.Tensor, state: ADMMS
     ops_true = ops
     ops, problem, state, crop, (s_nt, s_rd, t_m) = _pad_for_single(ops, problem, state, cfg)
     route = solve_route(ops, cfg)
-    if route in CARRY_ROUTES:
+    if _carries(ops, route):
         state, crop = _tiled_setup(ops_true, ops, state, crop, lam)
     per_iter_body = make_admm_iteration(ops, problem, lam, cfg, stop_ntheta=s_nt,
                                         stop_rows=s_rd, true_m=t_m)
@@ -633,7 +656,7 @@ def admm_fixed_iterations(ops: Operators, problem: Problem, lam: torch.Tensor,
     ops_true = ops
     ops, problem, state, crop, (s_nt, s_rd, t_m) = _pad_for_single(ops, problem, state, cfg)
     route = solve_route(ops, cfg)
-    if route in CARRY_ROUTES:
+    if _carries(ops, route):
         state, crop = _tiled_setup(ops_true, ops, state, crop, lam)
     elif fused_chunks(ops, cfg):
         chunk = min(resolve_chunk(cfg), n_iters)

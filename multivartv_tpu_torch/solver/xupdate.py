@@ -55,12 +55,16 @@ exact route; then for ``dct_pcg`` by route:
     on the 2-D tiled route, as the JAX package's ``tiled_ok`` makes it
     (xupdate.py:333-340, 502-527).  The exact-f32 route is this PCG.
 
-Operators cut to row slabs (a sharded fit, parallel/) take the same plain
-PCG of the configured x-solver on the row slabs, its r0 from
-``gram_residual_tiled_2d_shard`` (B9s) given b, its matvec B9s's kernel
-in matvec mode, every dot a sum over the row group, and the DCT
+Operators cut to slabs (a sharded fit, parallel/) take the same plain PCG
+of the configured x-solver on the slabs: at p = 2 its r0 from
+``gram_residual_tiled_2d_shard`` (B9s) given b and its matvec B9s's kernel
+in matvec mode; at p = 3 its r0 from ``gram_residual_tiled_3d_shard``
+(B13s) with b formed in the kernel from the carries and its matvec B13s's
+matvec mode; every dot a sum over the row group, and the DCT
 preconditioner through the pencil transpose (JAX xupdate.py:361-371 off
-the TPU; on a TPU the JAX package runs the bf16 spectral CG there).
+the TPU; on a TPU the JAX package runs the bf16 spectral CG there).  At
+p = 1 under dct_pcg the x-update is the partition solve
+(solver/tridiag.py::partition_xupdate: T1 on each rank's segment).
 
 The JAX package's ``stack_elementwise`` option (off in production) is not
 ported.
@@ -354,27 +358,44 @@ def _solve_natural(ops: Operators, counts, cbar, b, rho, x0, cfg: SolverConfig, 
     return res.x, res.iters
 
 
-def _solve_plain(ops: Operators, counts, cbar, b, rho, x0, cfg: SolverConfig, tiled: bool):
-    """The plain PCG (JAX xupdate.py:502-527; see module doc).  On row
-    slabs (ops.slab, the shard route) its r0 = b - (counts + rho D'D) x0
-    is B9s given b and its matvec B9s's kernel in matvec mode, both with
-    v's halos; every dot is a sum over the row group, and the DCT
-    preconditioner runs through the pencil transpose (_sharded_dct_solve).
-    That is the JAX package's sharded x-update off the TPU (xupdate.py:
-    361-371, 502-527); on a TPU it runs the bf16 spectral-correction CG
-    (ROADMAP: the spectral CG across ranks)."""
+def _solve_plain(ops: Operators, counts, cbar, b, rho, x0, cfg: SolverConfig, tiled: bool,
+                 rhs_parts=None):
+    """The plain PCG (JAX xupdate.py:502-527; see module doc).  On slabs
+    (ops.slab, the shard route) its r0 = b - (counts + rho D'D) x0 is B9s
+    given b (p = 2) or B13s with b formed from rhs_parts (p = 3, where the
+    route passes them), its matvec B9s's or B13s's matvec mode, all with
+    v's halos (plain stencils at p = 1); every dot is a sum over the row
+    group, and the DCT preconditioner runs through the pencil transpose
+    (_sharded_dct_solve).  That is the JAX package's sharded x-update off
+    the TPU (xupdate.py: 361-371, 502-527); on a TPU it runs the bf16
+    spectral-correction CG (ROADMAP: the spectral CG across ranks)."""
     slab, r0, dots = ops.slab, None, _dots
     if slab is not None:
         from multivartv_tpu_torch.parallel import tiled_shard
         from multivartv_tpu_torch.parallel.halo import psum
 
-        def matvec(v):
-            return tiled_shard.gram_matvec_tiled_2d_sharded(slab, v, counts, rho, ops.scales)
+        p = len(ops.m)
+        if p == 3:
+            def matvec(v):
+                return tiled_shard.gram_matvec_tiled_3d_sharded(slab, v, counts, rho,
+                                                                ops.scales)
+
+            r0 = tiled_shard.gram_residual_tiled_3d_sharded(
+                slab, None if rhs_parts is not None else b, x0, counts, rho, ops.scales,
+                rhs_parts=rhs_parts)
+        elif p == 2:
+            def matvec(v):
+                return tiled_shard.gram_matvec_tiled_2d_sharded(slab, v, counts, rho,
+                                                                ops.scales)
+
+            r0 = tiled_shard.gram_residual_tiled_2d_sharded(slab, b, x0, counts, rho,
+                                                            ops.scales)
+        else:
+            def matvec(v):
+                return counts * v + rho * ops.apply_gram(v)
 
         def dots(pairs):
             return psum(_dots(pairs), slab.group)
-
-        r0 = tiled_shard.gram_residual_tiled_2d_sharded(slab, b, x0, counts, rho, ops.scales)
     elif tiled and len(ops.m) == 2:
         def matvec(v):
             return kernels.gram_matvec_tiled_2d(v, counts, rho, ops.scales)
@@ -409,22 +430,56 @@ def _solve_plain(ops: Operators, counts, cbar, b, rho, x0, cfg: SolverConfig, ti
     return res.x, res.iters
 
 
+def _mat_along(x: torch.Tensor, t: torch.Tensor, axis: int, inverse: bool) -> torch.Tensor:
+    """The dense DCT matrix t (or, inverse, its transpose) applied along
+    axis 0, 1 or 2 of a 3-D array, as one matrix product on a view (no
+    permuted copy): axis 0 on the (m0, rest) view, axis 1 batched over
+    axis 0, axis 2 from the right."""
+    t = t.T if inverse else t
+    if axis == 0:
+        return (t @ x.reshape(x.shape[0], -1)).view(x.shape)
+    if axis == 1:
+        return torch.matmul(t, x)
+    return x @ t.T
+
+
 def _sharded_dct_solve(ops: Operators, r: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """idctn(dctn(r) / w) on row slabs: the axis-1 transforms on this
-    rank's rows, the axis-0 transforms and the division by w (the column
-    slab of cbar + rho eigs) on its columns, after the pencil transpose
+    """idctn(dctn(r) / w) on slabs: the transforms of axes 1 (and 2) on
+    this rank's slab, those of axis 0 and the division by w (the pencil of
+    cbar + rho eigs) on its pencil, after the pencil transpose
     (parallel/halo.py); dense float32 matrices with TF32 off, or the FFT
-    DCT above 2048 per axis, as the exact route's preconditioner."""
-    from multivartv_tpu_torch.parallel.halo import cols_to_rows, rows_to_cols
+    DCT above 2048 per axis, as the exact route's preconditioner.  At p = 1
+    (no pencil) the chain is gathered and solved whole on every rank."""
+    from multivartv_tpu_torch.parallel.halo import cols_to_rows, gather_rows, rows_to_cols
+    slab = ops.slab
+    if len(ops.m) == 1:
+        whole = dct_ops.shifted_solve(gather_rows(r, slab), 0.0, 1.0, w, ops.dct_mats)
+        return slab.rows(whole)
     with dct_ops.exact_f32_matmul():
         if ops.dct_mats is not None:
-            t0, t1 = ops.dct_mats
-            y = rows_to_cols(r @ t1.T, ops.slab)
-            z = t0.T @ ((t0 @ y) / w)
-            return cols_to_rows(z, ops.slab) @ t1
-        y = rows_to_cols(dct_ops.dct_along(r, 1), ops.slab)
-        z = dct_ops.idct_along(dct_ops.dct_along(y, 0) / w, 0)
-        return dct_ops.idct_along(cols_to_rows(z, ops.slab), 1)
+            if len(ops.m) == 2:
+                t0, t1 = ops.dct_mats
+                y = rows_to_cols(r @ t1.T, slab)
+                z = t0.T @ ((t0 @ y) / w)
+                return cols_to_rows(z, slab) @ t1
+            mats = ops.dct_mats
+            y = r
+            for ax in range(1, len(ops.m)):
+                y = _mat_along(y, mats[ax], ax, False)
+            y = rows_to_cols(y, slab)
+            z = _mat_along(_mat_along(y, mats[0], 0, False) / w, mats[0], 0, True)
+            z = cols_to_rows(z, slab)
+            for ax in range(1, len(ops.m)):
+                z = _mat_along(z, mats[ax], ax, True)
+            return z
+        y = r
+        for ax in range(1, len(ops.m)):
+            y = dct_ops.dct_along(y, ax)
+        y = rows_to_cols(y, slab)
+        z = cols_to_rows(dct_ops.idct_along(dct_ops.dct_along(y, 0) / w, 0), slab)
+        for ax in range(1, len(ops.m)):
+            z = dct_ops.idct_along(z, ax)
+        return z
 
 
 def solve_x(ops: Operators, counts: torch.Tensor, cbar: torch.Tensor,
@@ -453,7 +508,10 @@ def solve_x(ops: Operators, counts: torch.Tensor, cbar: torch.Tensor,
         return dct_ops.shifted_solve(b, cbar, rho, ops.gram_eigs, ops.dct_mats), 0
     if tridiag.tridiag_applies(ops, cfg):
         # p = 1: the system is tridiagonal, solved exactly by cyclic
-        # reduction, no CG step (JAX xupdate.py:382-390).
+        # reduction, no CG step (JAX xupdate.py:382-390); on a chain cut
+        # into segments, the partition solve.
+        if ops.slab is not None:
+            return tridiag.partition_xupdate(counts, b, rho, ops.scales[0], ops.slab), 0
         solve = kernels.xupdate_tridiag if use_kernels else tridiag.xupdate_tridiag
         return solve(counts, b, rho, ops.scales[0]), 0
     kind = whole_xupdate(ops, cfg, one_kernel) if use_kernels else None
@@ -474,4 +532,4 @@ def solve_x(ops: Operators, counts: torch.Tensor, cbar: torch.Tensor,
                             kernel=False)
     if kind == "natural" or (packed and (tiled or spectral)):
         return _solve_natural(ops, counts, cbar, b, rho, x0, cfg, tiled)
-    return _solve_plain(ops, counts, cbar, b, rho, x0, cfg, tiled)
+    return _solve_plain(ops, counts, cbar, b, rho, x0, cfg, tiled, rhs_parts=rhs_parts)

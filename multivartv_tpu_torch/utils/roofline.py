@@ -90,11 +90,14 @@ def device_peaks(kind: Optional[str] = None) -> Tuple[float, float]:
 # Kernel bounds
 # ---------------------------------------------------------------------------
 
-# The halo rows a row-slab kernel reads besides its slab (csrc/dual.cu,
-# tiled.cu, rhs.cu): theta above and below and u above; v above and below;
-# alpha_0, alpha_2, u_0, u_2 above.
+# The halo rows (planes at p = 3) a slab kernel reads besides its slab
+# (csrc/dual.cu, tiled.cu, rhs.cu, tiled3.cu): theta above and below and u
+# above; v above and below; alpha_0, alpha_2, u_0, u_2 above; at p = 3
+# theta above and below and the 7 u blocks' plane below; v above and below.
 SLAB_HALO_ROWS = {"dual_update_tiled_2d_shard": 5, "gram_residual_tiled_2d_shard": 2,
-                  "gram_matvec_tiled_2d_shard": 2, "rhs_tiled_2d_shard": 4}
+                  "gram_matvec_tiled_2d_shard": 2, "rhs_tiled_2d_shard": 4,
+                  "dual_update_tiled_3d_shard": 9, "gram_residual_tiled_3d_shard": 2,
+                  "gram_matvec_tiled_3d_shard": 2}
 
 # Bytes per knot each kernel reads and writes (float32 lattices).
 _BYTES_PER_KNOT = {
@@ -117,7 +120,17 @@ _BYTES_PER_KNOT = {
     "gram_matvec_tiled_2d_shard": 8 + 4,
     "rhs_tiled_2d_shard": 28 + 4,
     "xupdate_tridiag": 8 + 4,             # counts, b -> x
+    # the plane-slab kernels: their twins', plus SLAB_HALO_ROWS planes
+    "dual_update_tiled_3d_shard": 32 + 36,
+    "gram_residual_tiled_3d_shard": 12 + 4,   # b, v, counts -> r0 (b given)
+    "gram_matvec_tiled_3d_shard": 8 + 4,      # v, counts -> A v
+    # T1's segment mode: counts, b -> 3 x (e_0, e_L formed in the kernel)
+    "xupdate_tridiag_segment": 8 + 12,
+    # the partition finish: y, l, r -> x (the W gathered ends aside)
+    "partition_finish": 12 + 4,
 }
+# The slab kernels that form b from oty, dta and dtu with `fused`.
+_FUSED_SLAB = ("gram_residual_tiled_2d_shard", "gram_residual_tiled_3d_shard")
 
 
 def kernel_work(name: str, m, batch: int = 1, k_iters: int = 4, n_steps: int = 3,
@@ -125,7 +138,8 @@ def kernel_work(name: str, m, batch: int = 1, k_iters: int = 4, n_steps: int = 3
     """(bytes, operations) one call of a kernel must move and do at lattice
     m: each input read once and each output written once (the per-block
     partial sums aside); operations are the folded DCT products'.  fused:
-    B9s with b formed from oty, dta and dtu (24 bytes per knot, not 16)."""
+    B9s or B13s with b formed from oty, dta and dtu (24 bytes per knot, not
+    16)."""
     n = int(np.prod(m))
     halves = sum(2 * 2 * (v // 2) ** 2 for v in m)    # bf16 (Te, To) per axis
     transform = n * sum(m)                            # one folded DCT, 2 flops per MAC
@@ -133,8 +147,8 @@ def kernel_work(name: str, m, batch: int = 1, k_iters: int = 4, n_steps: int = 3
         return batch * 64 * n + 4 * n + halves, batch * k_iters * 2 * n_steps * transform
     if name == "dual_struct":                         # n_in lattices in, n_out out
         return 4 * n * (n_in + n_out), 0
-    knot = 24 if fused and name == "gram_residual_tiled_2d_shard" else _BYTES_PER_KNOT[name]
-    nbytes = knot * n + 4 * m[-1] * SLAB_HALO_ROWS.get(name, 0)
+    knot = 24 if fused and name in _FUSED_SLAB else _BYTES_PER_KNOT[name]
+    nbytes = knot * n + 4 * int(np.prod(m[1:])) * SLAB_HALO_ROWS.get(name, 0)
     flops = 0
     if name == "xupdate_pcg_2d_packed":
         nbytes, flops = nbytes + halves, 2 * n_steps * transform

@@ -153,6 +153,8 @@ PERF_BOUNDS = [
     ("dual_update_tiled_2d_shard", (2048, 2048), {}, 0.0451, "bytes"),
     ("gram_residual_tiled_2d_shard", (2048, 2048), {}, 0.0200, "bytes"),
     ("xupdate_tridiag", (1 << 20,), {}, 0.0038, "bytes"),
+    ("xupdate_tridiag_segment", (1 << 18,), {}, 0.0016, "bytes"),
+    ("partition_finish", (1 << 18,), {}, 0.0013, "bytes"),
 ]
 
 

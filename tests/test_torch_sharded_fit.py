@@ -171,7 +171,7 @@ def test_distributed_bring_up_and_config_adaptation():
     """No process group comes up without a rendezvous; the backend follows
     the device (gloo on the CPU; NCCL, or an error, on CUDA); Jacobi PCG
     gets its 10 fixed steps, as in the JAX package; a 2-D process grid and
-    p != 2 are refused."""
+    p >= 4 are refused (p = 1 and 3: tests/test_torch_shard3d.py)."""
     assert distributed.init_distributed() is False
     assert distributed.backend_for("cpu") == "gloo"
     if not torch.distributed.is_nccl_available():
@@ -186,7 +186,7 @@ def test_distributed_bring_up_and_config_adaptation():
     with pytest.raises(ValueError):
         make_device_mesh((2, 2), ("sx", "sy"))      # four ranks asked of one
     with pytest.raises(NotImplementedError):
-        fit.default_lattice_mesh(3)
+        fit.default_lattice_mesh(4)
 
 
 @pytest.mark.parametrize("world", WORLDS)

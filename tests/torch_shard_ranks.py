@@ -26,8 +26,17 @@ def _sharded_admm(m, counts, oty, gram_diag, ybar, scales, lam, cfg):
 
 def fit_data(m, seed):
     """The fits' data: test_sharded_fit.py's step surface at 8 x 8, about 3
-    samples per knot of a smooth surface otherwise."""
+    samples per knot of a smooth surface otherwise (a smooth volume at
+    p = 3; at p = 1 a step plus a sine at sorted x, the fused lasso's)."""
     rng = np.random.RandomState(seed)
+    if len(m) == 3:
+        n = 3 * int(np.prod(m))
+        x = rng.uniform(0, 1, (n, 3))
+        return x, np.sin(3 * x[:, 0]) * np.cos(2 * x[:, 1]) + x[:, 2] + 0.2 * rng.randn(n)
+    if len(m) == 1:
+        n = 3 * m[0]
+        x = np.sort(rng.uniform(0, 1, n))
+        return x, (x > 0.5) + 0.5 * np.sin(4 * np.pi * x) + 0.3 * rng.randn(n)
     if tuple(m) == (8, 8):
         x = rng.uniform(0, 1, (240, 2))
         f = (x[:, 0] > 0.5).astype(float) - (x[:, 1] > 0.4).astype(float)
@@ -134,7 +143,113 @@ def _pieces(m, seed):
     return {k: np.asarray(v) for k, v in err.items()}
 
 
-JOBS = {"sharded_admm": _sharded_admm, "mvtv_sharded": _mvtv_sharded, "pieces": _pieces}
+def _pieces_3d(m, n1, seed):
+    """The p = 3 and p = 1 collectives and slab operations against their
+    single-process versions (every rank holds the whole lattice): halo
+    planes and knots, the 3-D pencil transposes, the gathers, D and D',
+    B12s (every flag pair, with and without true_m), B13s (b given, fused,
+    matvec), the shard route's p = 3 x-update, and the partition solve on
+    a chain of n1 knots whose counts vanish on one rank's segment and half
+    of another's.  The largest absolute errors (relative for the Boyd sums
+    and the partition solve)."""
+    from multivartv_tpu_torch.config import SolverConfig
+    from multivartv_tpu_torch.ops import kernels as K
+    from multivartv_tpu_torch.parallel import halo, tiled_shard
+    from multivartv_tpu_torch.parallel.fit import shard_operators
+    from multivartv_tpu_torch.parallel.sharding import RowSlab, make_device_mesh
+    from multivartv_tpu_torch.solver import tridiag, xupdate
+    from multivartv_tpu_torch.solver.problem import build_operators
+
+    rng = np.random.RandomState(seed)
+    grp = make_device_mesh()
+    slab = RowSlab(grp, m)
+    err = {}
+
+    def note(name, got, want):
+        err[name] = max(err.get(name, 0.0), float((got - want).abs().max()))
+
+    def lat():
+        return torch.as_tensor(rng.randn(*m).astype(np.float32))
+
+    cfg = SolverConfig()
+    ops = build_operators(m, np.asarray([0.4, 0.9, 1.3], np.float32), cfg, "cpu",
+                          with_padded=False)
+    ops_s = shard_operators(ops, slab)
+    rows, cols = slab.rows, slab.cols
+    theta, v, oty, dta, dtu = lat(), lat(), lat(), lat(), lat()
+    u = tuple(w * (z != 0) for w, z in zip([lat() for _ in range(7)], ops.apply_D(lat())))
+    alpha = tuple(w * (z != 0) for w, z in zip([lat() for _ in range(7)], ops.apply_D(lat())))
+    counts = torch.as_tensor(rng.poisson(2, m).astype(np.float32))
+    rho, kappa, us = torch.tensor(0.3), torch.tensor(0.05), torch.tensor(0.5)
+
+    lo, hi = slab.row_off, slab.row_off + slab.shape[0]
+    tops, bots = halo.halo_rows(grp, [rows(theta), rows(v)])
+    zero = torch.zeros((1,) + m[1:])
+    for t, b, x in zip(tops, bots, (theta, v)):
+        note("halo", t, x[lo - 1:lo] if lo > 0 else zero)
+        note("halo", b, x[hi:hi + 1] if hi < m[0] else zero)
+    note("pencil", halo.rows_to_cols(rows(v), slab), cols(v))
+    note("pencil", halo.cols_to_rows(cols(v), slab), rows(v))
+    note("gather", halo.gather_rows(rows(v), slab), v)
+    idx = torch.as_tensor(rng.randint(0, v.numel(), 50))
+    note("gather", halo.gather_fitted(rows(v), idx, slab), v.reshape(-1)[idx])
+    for a, b in zip(ops_s.apply_D(rows(theta)), ops.apply_D(theta)):
+        note("D", a, rows(b))
+    note("D", ops_s.apply_Dt(tuple(map(rows, alpha))), rows(ops.apply_Dt(alpha)))
+
+    for tm in (None, (m[0] - 1, m[1] - 2, m[2] - 1)):
+        for flags in ((True, False), (False, True)):
+            got = tiled_shard.dual_update_tiled_3d_sharded(
+                slab, rows(theta), tuple(map(rows, u)), kappa, ops.scales, us, tm, *flags)
+            want = K.dual_update_tiled_3d_reference(theta, u, kappa, ops.scales, us, tm, *flags)
+            for g, w in zip((*(got[0] or ()), *got[1], *got[3:]),
+                            (*(want[0] or ()), *want[1], *want[3:])):
+                note("B12s", g, rows(w))
+            err["B12s stats"] = max(err.get("B12s stats", 0.0),
+                                    float(((got[2] - want[2]).abs() / want[2].abs()).max()))
+    b = oty + rho * (dta + us * dtu)
+    for parts in (None, (rows(oty), rows(dta), us, rows(dtu))):
+        got = tiled_shard.gram_residual_tiled_3d_sharded(
+            slab, None if parts else rows(b), rows(v), rows(counts), rho, ops.scales,
+            rhs_parts=parts)
+        note("B13s", got, rows(K.gram_residual_tiled_3d_reference(b, v, counts, rho,
+                                                                   ops.scales)))
+    av = tiled_shard.gram_matvec_tiled_3d_sharded(slab, rows(v), rows(counts), rho, ops.scales)
+    note("B13s", av, rows(counts * v + rho * ops.apply_gram(v)))
+    # The shard route's x-update (B13s's fused r0 and matvec, the pencil
+    # DCT preconditioner, group dots) against the single-process plain PCG
+    # from the same b.
+    cbar = torch.sum(counts) / counts.numel()
+    x_s, it_s = xupdate.solve_x(ops_s, rows(counts), cbar, None, rho, rows(theta), cfg,
+                                tiled=True, rhs_parts=(rows(oty), rows(dta), us, rows(dtu)))
+    x_1, it_1 = xupdate._solve_plain(ops, counts, cbar, b, rho, theta, cfg, tiled=False)
+    note("solve_x", x_s, rows(x_1))
+    err["solve_x iterations"] = float(abs(it_s - it_1))
+
+    # p = 1: the halo knots, D and D', and the partition solve.
+    chain = RowSlab(grp, (n1,))
+    ops1 = build_operators((n1,), np.asarray([0.7], np.float32), cfg, "cpu", with_padded=False)
+    ops1_s = shard_operators(ops1, chain)
+    c1 = torch.as_tensor(rng.poisson(1, n1).astype(np.float32))
+    off = np.cumsum((0,) + chain.row_counts)
+    if len(off) > 2:
+        c1[off[1]:off[2]] = 0.0                           # rank 1's whole segment
+    if len(off) > 3:
+        c1[off[2]:off[2] + (off[3] - off[2]) // 2] = 0.0  # half of rank 2's
+    b1, t1 = (torch.as_tensor(rng.randn(n1).astype(np.float32)) for _ in range(2))
+    (d1,) = ops1_s.apply_D(chain.rows(t1))
+    note("D p=1", d1, chain.rows(ops1.apply_D(t1)[0]))
+    (w1,) = ops1.apply_D(b1)
+    note("D p=1", ops1_s.apply_Dt((chain.rows(w1),)), chain.rows(ops1.apply_Dt((w1,))))
+    x_p = tridiag.partition_xupdate(chain.rows(c1), chain.rows(b1), torch.tensor(0.8),
+                                    ops1.scales[0], chain)
+    x_w = tridiag.xupdate_tridiag(c1, b1, torch.tensor(0.8), ops1.scales[0])
+    err["partition"] = float((x_p - chain.rows(x_w)).abs().max() / x_w.abs().max())
+    return {k: np.asarray(v) for k, v in err.items()}
+
+
+JOBS = {"sharded_admm": _sharded_admm, "mvtv_sharded": _mvtv_sharded, "pieces": _pieces,
+        "pieces_3d": _pieces_3d}
 
 
 def _rank(rank, world, store, jobs, out):
