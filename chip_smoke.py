@@ -2523,6 +2523,8 @@ def _profile_group(key: str) -> str:
         return "B12 dual_update_tiled_3d"
     if "gram3_march_kernel" in k:
         return "B13 gram_residual_tiled_3d"
+    if "lap3_matvec_kernel" in k:
+        return "B13s's slab matvec (the Laplacian march)"
     if "fold_mma_kernel" in k:
         return "B3-B5 DCT products (dct_fold.cu)"
     if "fold_in_kernel" in k or "pad_halves_kernel" in k:
@@ -3589,24 +3591,29 @@ def check_t1_folds(label, seen, folds: int, n_lambda: int) -> None:
 # The fused lasso on the card (phase 20): mvtv_one at N = 2^20 at lambda =
 # FUSED_FRAC lambda_max, against the exact route (the plain cyclic reduction
 # on the card), one-sided at LARGE_GAP; mvtv(folds=5, n_lambda=20) at N = 1e5
-# against the JAX package's fit of the same data (FUSED_JAX).
+# against the JAX package's fit of the same data (FUSED_JAX), every solve of
+# both capped at FUSED_CAP iterations (at the default 3,000 the fit took
+# 244-319 s of the run's 1,200; the cap roughly halves its iterations).
 FUSED_ONE = 1 << 20
 FUSED_FRAC = 1e-4
 FUSED_CV = (100_000, 5, 20)
+FUSED_CAP = 1000
 # The JAX package's mvtv on fused_lasso_data(100_000) with the port's fold
 # labels, run on the CPU (its cyclic-reduction x-update) by:
 #
 #   import jax.numpy as jnp, numpy as np
 #   from multivartv_tpu import api
+#   from multivartv_tpu.config import SolverConfig
 #   from multivartv_tpu.solver import cv
 #   x, y = fused_lasso_data(100_000)
 #   labels = np.random.RandomState(123).permutation(np.arange(100_000) % 5)
 #   cv.kfold_indices = lambda n, k, seed: jnp.asarray(labels, jnp.int32)
-#   model = api.mvtv(x, y, m=(100_000,), mesh=x[:, None], n_lambda=20, folds=5)
+#   model = api.mvtv(x, y, m=(100_000,), mesh=x[:, None], n_lambda=20, folds=5,
+#                    solver_config=SolverConfig(max_iters=FUSED_CAP))
 #   # lambdas = model.lambdas, best = model.lambda_minmse_ind, cv_mses, per
 #   # lambda i the objective 0.5 ||y - fitted||^2 + lambda ||diff theta||_1 in
 #   # float64 of model.models[i] (at p = 1 D is the unscaled difference), and
-#   # its iterations; 736 s on the CPU.
+#   # its iterations; 356 s on the CPU.
 # Its lambda_max is float32 (1.66e-3 above the float64 value, which the
 # port computes: lam_max64 gives 124469.307), so the port's fit takes JAX's
 # grid (lambdas=) and is compared with it lambda for lambda.
@@ -3617,20 +3624,18 @@ FUSED_JAX = dict(
              2579.722900390625, 1588.718017578125, 978.4088745117188, 602.551513671875,
              371.08013916015625, 228.52908325195312, 140.7392578125, 86.67399597167969,
              53.37803649902344, 32.872764587402344, 20.244638442993164, 12.467623710632324],
-    cv_mses=[0.1079883724451065, 0.12626825273036957, 0.14575694501399994, 0.16494524478912354,
-             0.18303772807121277, 0.1997060626745224, 0.21488197147846222, 0.1843869388103485,
-             0.16137854754924774, 0.14091067016124725, 0.12327473610639572, 0.1113898903131485,
-             0.10285818576812744, 0.09713079780340195, 0.09386822581291199, 0.0919821634888649,
-             0.09101976454257965, 0.09056737273931503, 0.09036799520254135, 0.09028855711221695],
-    objectives=[511228.8832669231, 269761.07163162786, 145992.7348259565,
-                82372.2469730251, 49371.932605743394, 32076.335783919654,
-                23021.297280061546, 28285.740655743768, 20914.01004113535,
-                19131.533647927336, 14429.385319577059, 11816.314409273742,
-                8511.610763601735, 6943.202621253364, 6046.800067819497,
-                5540.277766403152, 5212.601305005279, 4974.402335899224,
-                4796.211950989773, 4666.913952606638],
-    iters=[3000, 3000, 3000, 3000, 3000, 3000, 1195, 711, 1629, 2708, 3000, 3000, 1932, 2033,
-           1695, 1321, 1122, 1052, 918, 858])
+    cv_mses=[0.09730749577283859, 0.10250020027160645, 0.1079883724451065, 0.11382334679365158,
+             0.11994338035583496, 0.12626825273036957, 0.132721409201622, 0.1392361968755722,
+             0.12519878149032593, 0.11576130241155624, 0.10970349609851837, 0.10421711206436157,
+             0.09934858977794647, 0.09583092480897903, 0.09352800995111465, 0.09199460595846176,
+             0.09108973294496536, 0.09059739112854004, 0.09037979692220688, 0.0902959331870079],
+    objectives=[574086.515582947, 334999.6642330846, 197140.4102291787, 117164.42853452876,
+                70764.54861340017, 43883.75752283781, 28347.864712614308, 19405.97244640399,
+                23971.79523457665, 16654.62030308334, 16367.226402321896, 13961.435040843353,
+                10072.508144931533, 8168.428984001304, 6808.125562209349, 5844.663753799064,
+                5352.401367394152, 4993.7901352208, 4798.418710177729, 4667.35214427016],
+    iters=[1000, 1000, 1000, 1000, 1000, 1000, 1000, 1000, 64, 643, 897, 1000, 1000, 1000,
+           1000, 1000, 1000, 1000, 910, 859])
 # The 316^2 point-cloud fit (phase 20): bivariate_exp(1e5) on the default
 # mesh's lattice, every point moved by N(0, (0.1 h)^2), h the knot spacing,
 # so the mesh is no lattice; lambda as WORKLOADS' 316^2.
@@ -3727,7 +3732,7 @@ def phase_fused(device):
     """Phase 20, the p = 1 main path under the launch counters: mvtv_one on
     the fused lasso at N = 2^20 (mesh = sorted x: irregular float32 knots,
     some coinciding and left empty) and mvtv(folds=5, n_lambda=20) at N =
-    1e5 on JAX's lambda grid, both through T1; and mvtv_one on a 316^2
+    1e5 on JAX's lambda grid (solves capped at FUSED_CAP), both through T1; and mvtv_one on a 316^2
     point cloud.  Then, launches not counted: the 2^20 fit against the
     exact route, both lambda_max against lam_max64, the 1e5 fit against
     FUSED_JAX."""
@@ -3769,9 +3774,10 @@ def phase_fused(device):
     with t1_fold_spy() as seen:
         model, cvres, fpath, seconds = mvtv_fit(x, y, (n,), device, n_lambda=n_lambda,
                                                 folds=folds, mesh=x[:, None],
-                                                lambdas=FUSED_JAX["lambdas"])
+                                                lambdas=FUSED_JAX["lambdas"],
+                                                max_iters=FUSED_CAP)
     used_cv = K.launch_counts["xupdate_tridiag"] - before
-    describe_mvtv(f"fused lasso N={n}", model, cvres, fpath, seconds)
+    describe_mvtv(f"fused lasso N={n}", model, cvres, fpath, seconds, max_iters=FUSED_CAP)
     check_t1_folds(f"mvtv fused lasso N={n}", seen, folds, n_lambda)
     its = int(cvres.fold_iters.sum()) + int(fpath.iters.sum())
     check(used_cv >= its, f"mvtv fused lasso N={n}: T1 launched {used_cv} times, once in each "
@@ -4117,6 +4123,12 @@ SHARD1_CAP = 1000
 # B12 and B13).
 SHARD3_CUTS = (tuple(len(a) for a in np.array_split(np.arange(256), 3)), (127, 1, 128),
                (1, 254, 1), (256,))
+# The slab matvec's (the Laplacian march's) extra lattices, random v and
+# Poisson counts, with remainder tiles in x1 and x2 (its tile is 32 x 64):
+# phase 3's 258 x 130 x 136 and 37 x 35 x 67, whose rows are not 16-byte
+# multiples (the 4-byte copies); each with its plane cuts.
+MATVEC3_RAGGED = (((258, 130, 136), ((86, 86, 86), (258,))),
+                  ((37, 35, 67), ((18, 1, 18), (37,))))
 # The partition solve's segments of a 2^20 chain, the second's counts all
 # zero (a short stretch: hundreds of empty knots in a row leave float32 no
 # digits of the solution, JAX's solve included, tests/test_torch_shard3d.py).
@@ -4146,14 +4158,15 @@ def plane_halos(xs, lo: int, hi: int):
 
 def compare_shard3(device, errs):
     """B12s (both compiled flag pairs, and with true_m one plane and row
-    short) and B13s (fused, b given, matvec) on the plane cuts SHARD3_CUTS
-    of PATH3's warm tiled3 state, each slab with its halo planes cut from
-    its neighbours: each slab against its plain version (1e-5 x max(1,
-    |ref|)), the slabs together against the whole-lattice B12 and B13
-    (SHARD_ELEMENT_TOL of max|x|, the matvec against -B13 with b = 0; the
-    Boyd sums SHARD_STATS_TOL relative), and the one-rank slab against
-    them bit for bit; records the largest absolute errors against the plain
-    versions in errs."""
+    short), B13s (fused, b given) and the slab matvec on the plane cuts
+    SHARD3_CUTS of PATH3's warm tiled3 state, each slab with its halo
+    planes cut from its neighbours: each slab against its plain version
+    (1e-5 x max(1, |ref|)), the slabs together against the whole-lattice
+    B12 and B13 (SHARD_ELEMENT_TOL of max|x|, the matvec against -B13 with
+    b = 0; the Boyd sums SHARD_STATS_TOL relative), and B12s's and B13s's
+    one-rank slab against them bit for bit; the matvec also on
+    MATVEC3_RAGGED's lattices; records the largest absolute errors against
+    the plain versions in errs."""
     import torch
     from multivartv_tpu_torch.ops import kernels as K
 
@@ -4207,43 +4220,75 @@ def compare_shard3(device, errs):
             del whole, lat_w, got, k_out
 
         b = pr.oty + rho * (s.dta + us * s.dtu)
-        zero = torch.zeros_like(b)
-        for label, bb, fused in (("fused rhs", None, True), ("b given", b, False),
-                                 ("matvec", zero, False)):
+        for label, bb, fused in (("fused rhs", None, True), ("b given", b, False)):
             parts = (pr.oty, s.dta, us, s.dtu) if fused else None
             whole = K.gram_residual_tiled_3d(bb, s.theta, pr.counts, rho, sc, rhs_parts=parts)
-            if label == "matvec":
-                whole = -whole
             got, worst = [], 0.0
             for r, (lo, hi) in enumerate(slabs):
                 (top,), (bot,) = plane_halos((s.theta,), lo, hi)
-                if label == "matvec":
-                    args = (s.theta[lo:hi], top, bot, lo, m[0], pr.counts[lo:hi], rho, sc)
-                    k_out = K.gram_matvec_tiled_3d_shard(*args)
-                    p_out = K.gram_matvec_tiled_3d_shard_reference(*args)
-                else:
-                    rp = (pr.oty[lo:hi], s.dta[lo:hi], us, s.dtu[lo:hi]) if fused else None
-                    args = (None if fused else bb[lo:hi], s.theta[lo:hi], top, bot, lo, m[0],
-                            pr.counts[lo:hi], rho, sc)
-                    k_out = K.gram_residual_tiled_3d_shard(*args, rhs_parts=rp)
-                    p_out = K.gram_residual_tiled_3d_shard_reference(*args, rhs_parts=rp)
+                rp = (pr.oty[lo:hi], s.dta[lo:hi], us, s.dtu[lo:hi]) if fused else None
+                args = (None if fused else bb[lo:hi], s.theta[lo:hi], top, bot, lo, m[0],
+                        pr.counts[lo:hi], rho, sc)
+                k_out = K.gram_residual_tiled_3d_shard(*args, rhs_parts=rp)
+                p_out = K.gram_residual_tiled_3d_shard_reference(*args, rhs_parts=rp)
                 torch.cuda.synchronize()
-                name = ("gram_matvec_tiled_3d_shard" if label == "matvec"
-                        else "gram_residual_tiled_3d_shard")
-                worst = max(worst, note(name, [k_out], [p_out]))
+                worst = max(worst, note("gram_residual_tiled_3d_shard", [k_out], [p_out]))
                 got.append(k_out)
-            check(worst <= 1e-5, f"{name} ({label}) {tag}: each slab vs its plain version, "
-                  f"max err {worst:.3e} <= 1e-5 x max(1, |ref|)")
+            name = f"gram_residual_tiled_3d_shard ({label}) {tag}"
+            check(worst <= 1e-5, f"{name}: each slab vs its plain version, max err "
+                  f"{worst:.3e} <= 1e-5 x max(1, |ref|)")
             cat = torch.cat(got)
             e, same = rel_max(cat, whole), torch.equal(cat, whole)
-            check(e <= SHARD_ELEMENT_TOL, f"{name} ({label}) {tag}: slabs together vs B13, max "
-                  f"err {e:.3e} <= {SHARD_ELEMENT_TOL:g} x max|x| (equal bit for bit: {same})")
-            if len(slabs) == 1 and label != "matvec":
-                check(same, f"{name} ({label}) {tag}: the one-rank slab equals B13 bit for bit")
+            check(e <= SHARD_ELEMENT_TOL, f"{name}: slabs together vs B13, max err {e:.3e} <= "
+                  f"{SHARD_ELEMENT_TOL:g} x max|x| (equal bit for bit: {same})")
+            if len(slabs) == 1:
+                check(same, f"{name}: the one-rank slab equals B13 bit for bit")
             del whole, got, cat
-        del b, zero
+        del b
+        check_matvec3(tag, s.theta, pr.counts, rho, sc, cut, errs)
     del I, s
     torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(46)
+    rho, sc = torch.tensor(0.37, device=device), (0.6, 1.1, 0.8, 0.9, 1.3, 0.7, 0.5)
+    for lat, cuts in MATVEC3_RAGGED:
+        v = torch.randn(lat, generator=gen, device=device)
+        counts = torch.poisson(torch.full(lat, 0.25, device=device), generator=gen)
+        for cut in cuts:
+            check_matvec3(f"{'x'.join(map(str, v.shape))} in plane slabs {cut}", v, counts, rho,
+                          sc, cut, errs)
+        del v, counts
+        torch.cuda.empty_cache()
+
+
+def check_matvec3(tag, v, counts, rho, sc, cut, errs):
+    """The slab matvec (the Laplacian march) on the plane cut `cut` of the
+    lattice v, each slab with its halo planes cut from its neighbours:
+    each slab against its plain version (1e-5 x max(1, |ref|)), the slabs
+    together against B13 with b = 0 (A v = -r0; SHARD_ELEMENT_TOL of
+    max|x|); records its largest absolute error against the plain version
+    in errs."""
+    import torch
+    from multivartv_tpu_torch.ops import kernels as K
+
+    name = "gram_matvec_tiled_3d_shard"
+    bounds = np.cumsum((0,) + tuple(cut)).tolist()
+    whole = -K.gram_residual_tiled_3d(torch.zeros_like(v), v, counts, rho, sc)
+    got, worst, err = [], 0.0, 0.0
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        (top,), (bot,) = plane_halos((v,), lo, hi)
+        args = (v[lo:hi], top, bot, lo, v.shape[0], counts[lo:hi], rho, sc)
+        k_out = K.gram_matvec_tiled_3d_shard(*args)
+        p_out = K.gram_matvec_tiled_3d_shard_reference(*args)
+        torch.cuda.synchronize()
+        worst = max(worst, rel_err(k_out, p_out))
+        err = max(err, float((k_out.double() - p_out.double()).abs().max()))
+        got.append(k_out)
+    errs[name] = max(errs.get(name, 0.0), err)
+    check(worst <= 1e-5, f"{name} {tag}: each slab vs its plain version, max err {worst:.3e} "
+          "<= 1e-5 x max(1, |ref|)")
+    e = rel_max(torch.cat(got), whole)
+    check(e <= SHARD_ELEMENT_TOL, f"{name} {tag}: slabs together vs B13 (b = 0), max err "
+          f"{e:.3e} <= {SHARD_ELEMENT_TOL:g} x max|x|")
 
 
 def compare_partition(device, errs):
@@ -4343,7 +4388,32 @@ def shard_inputs(x, y, m, mesh, device, group, **cfg):
     scfg = pfit._sharded_solver_config(SolverConfig(**cfg), group)
     setup = _setup(x, y, m, mesh, scfg, DEFAULT_MESH, device)
     slab = RowSlab(group, setup[2].m)
-    return pfit.shard_operators(setup[5], slab), shard_problem(setup[6], slab), scfg
+    ops = pfit.shard_operators(setup[5], slab)
+    log(f"  {'x'.join(map(str, setup[2].m))}: the operators' fields that the cut drops hold "
+        f"{dropped_bytes(setup[5], ops) / 2**20:.1f} MiB on the device")
+    return ops, shard_problem(setup[6], slab), scfg
+
+
+def tensor_bytes(x) -> int:
+    """Bytes of the tensors in x (a tensor, an Operators, nested tuples)."""
+    import dataclasses
+
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (tuple, list)):
+        return sum(tensor_bytes(v) for v in x)
+    if dataclasses.is_dataclass(x):
+        return sum(tensor_bytes(getattr(x, f.name)) for f in dataclasses.fields(x))
+    return 0
+
+
+def dropped_bytes(whole, cut) -> int:
+    """Bytes of the whole Operators' fields that its cut (shard_operators)
+    sets to None: what a sharded fit frees once it drops the whole set-up."""
+    import dataclasses
+    return sum(tensor_bytes(getattr(whole, f.name)) for f in dataclasses.fields(whole)
+               if getattr(cut, f.name) is None and getattr(whole, f.name) is not None)
 
 
 def time_iterations(label, ops, pr, lam, cfg, n_it):
@@ -4366,7 +4436,7 @@ def time_iterations(label, ops, pr, lam, cfg, n_it):
     return ms
 
 
-def phase_sharded3(device):
+def phase_sharded3(device, errs):
     """Phase 23, the seventh main path, under the launch counters: the
     sharded fit at p = 3 and p = 1 on one card, a row group of one NCCL
     rank (as phase 16's): mvtv_sharded(folds=1, SHARD3_LAMBDAS lambdas) at
@@ -4380,13 +4450,19 @@ def phase_sharded3(device):
     solve at the chosen lambda (mvtv_one's solve, one-sided LARGE_GAP) and
     at N = 1e5 (folds 2) against the single-card mvtv's tie set (MVTV_TIE),
     both through T1; every solve on both sides capped (SHARD3_CAP,
-    SHARD1_CAP).  Then, launches not counted, ms per iteration of the
+    SHARD1_CAP); each fit's peak device memory (max_memory_allocated,
+    reset before it) and, at p = 3, the live tensors of the lattice's
+    shape at its first ADMM solve (after the cut; a group of one's slab is
+    the lattice).  Then, launches not counted, ms per iteration of the
     shard route at 256^3 and 2^20 beside the single-card tiled3 and tridiag
     routes with the device's idle share (T1 once per iteration on the
-    group of one), and B12s, B13s (fused, as the route calls it), its
-    matvec and T1's segment mode beside their plain versions.  Returns
-    (launches, {kernel: (ms, plain_ms, m, bound kwargs)})."""
+    group of one), and B12s, B13s (fused, as the route calls it), the
+    slab matvec and T1's segment mode beside their plain versions, B13s
+    and the matvec first held against them at 256^3 (1e-5 x max(1, |ref|),
+    their largest absolute errors recorded in errs).  Returns (launches,
+    {kernel: (ms, plain_ms, m, bound kwargs)})."""
     import tempfile
+    from contextlib import nullcontext
 
     import torch
     import torch.distributed as dist
@@ -4397,6 +4473,7 @@ def phase_sharded3(device):
     from multivartv_tpu_torch.parallel import distributed
     from multivartv_tpu_torch.parallel import fit as pfit
     from multivartv_tpu_torch.parallel.sharding import make_device_mesh
+    from multivartv_tpu_torch.utils.profiling import solve_census
 
     log("phase 23: the sharded fit at p = 3 (plane slabs) and p = 1 (chain segments) on one "
         "card (a row group of one NCCL rank), counters reset")
@@ -4417,13 +4494,28 @@ def phase_sharded3(device):
                       fits1[n][0][:, None], cap1) for n, folds in SHARD1_FITS]
             for label, ((x, y), m), folds, n_lambda, mesh, cfg in runs:
                 before = dict(K.launch_counts)
+                # At the fit's first solve, after the cut (at p = 1 the
+                # samples' arrays have the chain's shape: no census).
+                census = solve_census(m, first_only=True) if len(m) == 3 else nullcontext(
+                    ([], [0.0]))
                 torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
-                models[label] = pfit.mvtv_sharded(x, y, m=m, mesh=mesh, folds=folds,
-                                                  n_lambda=n_lambda, solver_config=cfg,
-                                                  device=device)
+                with census as (seen, t_census):
+                    models[label] = pfit.mvtv_sharded(x, y, m=m, mesh=mesh, folds=folds,
+                                                      n_lambda=n_lambda, solver_config=cfg,
+                                                      device=device)
                 torch.cuda.synchronize()
-                seconds[label] = time.perf_counter() - t0
+                seconds[label] = time.perf_counter() - t0 - t_census[0]
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                log(f"  mvtv_sharded {label}: peak device memory {peak:.3f} GiB "
+                    f"(max_memory_allocated, reset before the fit) [{GPU_LINE}]")
+                if seen:
+                    (n_t, nbytes), = seen
+                    log(f"  mvtv_sharded {label}: {n_t} live tensors of the lattice's shape at "
+                        f"its first ADMM solve, after the cut ({nbytes / 2**30:.3f} GiB in "
+                        f"distinct storages; one rank's slab is the whole lattice; census "
+                        f"{t_census[0]:.2f} s, not in the fit's time)")
                 used[label] = {k: K.launch_counts[k] - before[k] for k in K.KERNELS
                                if K.launch_counts[k] != before[k]}
                 mdl = models[label]
@@ -4561,6 +4653,14 @@ def phase_sharded3(device):
         "gram_matvec_tiled_3d_shard": (lambda: K.gram_matvec_tiled_3d_shard(*mv),
                                        lambda: K.gram_matvec_tiled_3d_shard_reference(*mv), {}),
     }
+    for k in ("gram_residual_tiled_3d_shard", "gram_matvec_tiled_3d_shard"):
+        got, ref = cases[k][0](), cases[k][1]()
+        torch.cuda.synchronize()
+        e = rel_err(got, ref)
+        errs[k] = max(errs.get(k, 0.0), float((got.double() - ref.double()).abs().max()))
+        check(e <= 1e-5, f"{k} {'x'.join(map(str, m))} one-rank slab (the fit's launch shape, "
+              f"its warm state): vs its plain version, max err {e:.3e} <= 1e-5 x max(1, |ref|)")
+        del got, ref
     for k, (kern, plain, kw) in cases.items():
         p1 = cuda_time_ms(plain, 3)
         k_ms = time_call(k, f"{'x'.join(map(str, m))} one-rank slab", kern, m, **kw)
@@ -4643,7 +4743,7 @@ SOURCES = {
     "gram_residual_tiled_3d_shard": ("multivartv_tpu_torch/csrc/tiled3.cu",
                                      "none: XLA under SPMD in JAX (multivartv_tpu/parallel/"
                                      "fit.py:256, the p = 3 PCG's r0)"),
-    # B13s in its matvec mode: the sharded p = 3 PCG's matvec.
+    # The sharded p = 3 PCG's matvec: the Laplacian march.
     "gram_matvec_tiled_3d_shard": ("multivartv_tpu_torch/csrc/tiled3.cu",
                                    "none: XLA under SPMD in JAX (multivartv_tpu/parallel/fit.py"
                                    ":256, the p = 3 PCG's matvec)"),
@@ -4737,7 +4837,7 @@ def main(argv=None) -> int:
         launches = {k: launches.get(k, 0) + launches_arms[k] for k in launches_arms}
         timed.update({k: (ms, plain, m, {}) for k, (ms, plain, m) in times_arms.items()})
     if 23 in phases:
-        launches_s3, times_s3 = phase_sharded3(device)
+        launches_s3, times_s3 = phase_sharded3(device, errs)
         launches = {k: launches.get(k, 0) + launches_s3[k] for k in launches_s3}
         timed.update(times_s3)
     if 8 in phases:

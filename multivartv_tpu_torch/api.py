@@ -179,9 +179,11 @@ def mvtv(data, y, m=None, mesh=None, n_lambda: int = 100, ftrue=None, lambdas=No
     the full data.  folds = 1: the full-data path alone, its MSE against y,
     and a fresh solve at the best lambda (solvers.cpp:328-335)."""
     path_config, cv_config = _fit_configs(n_lambda, folds, path_config, cv_config)
-    return _cross_validated_fit(_setup(data, y, m, mesh, solver_config, mesh_config, device),
-                                WHOLE, ftrue, lambdas, verbose, solver_config, path_config,
-                                cv_config)
+    data_np, y_np, spec, data_t, y_t, ops, problem = _setup(data, y, m, mesh, solver_config,
+                                                            mesh_config, device)
+    grid, path_config = _lambda_grid(ops, problem, lambdas, path_config, verbose)
+    return _cross_validated_fit((data_np, y_np, spec, data_t, y_t), ops, problem, grid, WHOLE,
+                                ftrue, verbose, solver_config, path_config, cv_config)
 
 
 def _fit_configs(n_lambda: int, folds: int, path_config: Optional[PathConfig],
@@ -200,11 +202,10 @@ def _fit_configs(n_lambda: int, folds: int, path_config: Optional[PathConfig],
 
 
 class LatticeCut(NamedTuple):
-    """How a fit lays its lattice over processes: the lambda grid every
-    process solves, the operators and problem of its own part, and the
-    whole theta from its part."""
-    grid: Callable
-    operators: Callable
+    """How a fit lays its lattice over processes once its lambda grid is
+    set: the problem of its own part (each CV fold's, as it is built), and
+    a lattice array whole from its part, a leading lambda axis kept
+    (parallel/fit.py gathers it to the host one lambda at a time)."""
     problem: Callable
     gather: Callable
 
@@ -213,31 +214,41 @@ def _same(x):
     return x
 
 
-WHOLE = LatticeCut(_same, _same, _same, _same)
+WHOLE = LatticeCut(_same, _same)
 
 
-def _cross_validated_fit(setup, cut: LatticeCut, ftrue, lambdas, verbose: bool,
-                         solver_config: SolverConfig, path_config: PathConfig,
-                         cv_config: CVConfig) -> MVTVModel:
-    """mvtv's body on _setup's output: lambda_max and the grid from the
-    whole problem, then the path, the folds and the refit on the cut's
-    operators and problems (parallel/fit.py cuts them into row slabs; the
-    folds then run one after another, cv_config.vmap_folds False)."""
-    data_np, y_np, spec, data_t, y_t, ops, problem = setup
+def _lambda_grid(ops, problem, lambdas, path_config: PathConfig, verbose: bool,
+                 share: Callable = _same):
+    """(grid, path_config): lambda_max (float64) and the descending grid from
+    the whole problem, or the given lambdas with n_lambda set to their
+    number.  share: how every process gets the same grid (parallel/fit.py
+    broadcasts rank 0's)."""
     if lambdas is None:
         lmax = path_lib.lam_max(ops, problem, path_config)
-        grid = cut.grid(path_lib.create_lambdas(lmax, path_config))
+        grid = share(path_lib.create_lambdas(lmax, path_config))
         if verbose:
             print(f"Lambda_max = {float(lmax):.6g}")
-    else:
-        grid = torch.as_tensor(np.asarray(lambdas, np.float64), dtype=torch.float32,
-                               device=y_t.device).reshape(-1)
-        path_config = dataclasses.replace(path_config, n_lambda=int(grid.shape[0]))
+        return grid, path_config
+    grid = torch.as_tensor(np.asarray(lambdas, np.float64), dtype=torch.float32,
+                           device=problem.y.device).reshape(-1)
+    return grid, dataclasses.replace(path_config, n_lambda=int(grid.shape[0]))
+
+
+def _cross_validated_fit(samples, ops, problem, grid, cut: LatticeCut, ftrue, verbose: bool,
+                         solver_config: SolverConfig, path_config: PathConfig,
+                         cv_config: CVConfig) -> MVTVModel:
+    """mvtv's body once the grid is set (_lambda_grid): the path, the folds
+    and the refit on ops and problem, the whole lattice's or one part's
+    (parallel/fit.py cuts them into slabs; the folds then run one after
+    another, cv_config.vmap_folds False, each fold's problem cut as it is
+    built).  samples: _setup's (data, y as float64 host arrays, mesh spec,
+    data, y on the device)."""
+    data_np, y_np, spec, data_t, y_t = samples
     ftrue_t = (y_t if ftrue is None
                else torch.as_tensor(np.asarray(ftrue, np.float64), dtype=torch.float32,
                                     device=y_t.device).reshape(-1))
-    ops, problem = cut.operators(ops), cut.problem(problem)
     folds = cv_config.folds
+    best_theta = None
 
     if folds == 1:
         final_path = path_lib.solve_path(ops, problem, grid, solver_config, path_config,
@@ -248,16 +259,15 @@ def _cross_validated_fit(setup, cut: LatticeCut, ftrue, lambdas, verbose: bool,
                                                solver_config)
     else:
         labels = cv_lib.kfold_indices(y_np.shape[0], folds, cv_config.seed)
-        problems = cv_lib.fold_problems(spec, data_t, y_t, labels, folds)
-        res = cv_lib.cross_validate(ops, problems, grid, solver_config, path_config,
-                                    cv_config, fold_map=None if cut is WHOLE else cut.problem)
+        problems = cv_lib.fold_problems(spec, data_t, y_t, labels, folds, fold_map=cut.problem)
+        res = cv_lib.cross_validate(ops, problems, grid, solver_config, path_config, cv_config)
         del problems
         cv_mses = res.mean_mse.cpu().numpy()
         best = int(np.argmin(cv_mses))
         final_path = path_lib.solve_path(ops, problem, grid, solver_config, path_config,
                                          ftrue=ftrue_t, progress=verbose)
         if final_path.thetas is not None:
-            best_theta, best_fitted = final_path.thetas[best], final_path.fitted[best]
+            best_fitted = final_path.fitted[best]
         else:
             best_theta, best_fitted = _fresh_solve(ops, problem, grid[best], grid[0] / 5.0,
                                                    solver_config)
@@ -265,7 +275,8 @@ def _cross_validated_fit(setup, cut: LatticeCut, ftrue, lambdas, verbose: bool,
         print(f"Best lambda = {float(grid[best]):.6g}")
     if final_path.thetas is not None:
         final_path = final_path._replace(thetas=cut.gather(final_path.thetas))
-    return _assemble_model(data_np, y_np, spec, final_path, grid, best, cut.gather(best_theta),
+    best_theta = final_path.thetas[best] if best_theta is None else cut.gather(best_theta)
+    return _assemble_model(data_np, y_np, spec, final_path, grid, best, best_theta,
                            best_fitted, cv_mses, solver_config)
 
 

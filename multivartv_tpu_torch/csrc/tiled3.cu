@@ -73,8 +73,42 @@
 // lattice's edges stay where they are.  A wrapped plane only ever feeds
 // values that an edge mask zeroes (theta, v) or that the blocks' trailing
 // edges hold at zero (u), so on one slab with zero halos B12s and B13s
-// compute B12's and B13's outputs bit for bit.  B13 also gets a matvec
-// mode, (counts + rho D'D) v: the sharded PCG's matvec.
+// compute B12's and B13's outputs bit for bit.
+//
+// B13s's matvec, A v = (counts + rho D'D) v on a plane slab (the sharded
+// p = 3 PCG's matvec, called once a CG step), is a kernel of its own, not
+// bit-equal to B13: it needs none of the per-block values that B13's march
+// keeps for the TPU kernel's operation order.  Each block's operator
+// factors by axis.  With M_j the trailing-edge mask along axis j (on the
+// global plane for axis 0) and Delta_j the circular forward difference, a
+// mask along axis k commutes with Delta_j for j != k, so D_b'D_b =
+// prod_{j in b} L_j with L_j = Delta_j' M_j Delta_j, the 1-D Neumann
+// Laplacian.  Sorting fd_binaries(3)'s blocks by their axis-0 part:
+//   A v = counts v + rho (P v + L_0 (Q v)),
+//   P = s2(0,1,0) L_1 + s2(0,0,1) L_2 + s2(0,1,1) L_1 L_2,
+//   Q = s2(1,0,0) + s2(1,1,0) L_1 + s2(1,0,1) L_2 + s2(1,1,1) L_1 L_2,
+// each s2 = s_b^2 rounded to float32.  P and Q are 9-point stencils within
+// a plane, L_0 a 3-plane stencil along the march, and every L_j is formed
+// from differences, (L_j w)(x) = M_j(x) (w(x) - w(x + e_j)) + M_j(x - e_j)
+// (w(x) - w(x - e_j)) with M_j(-1) = 0, so that no coefficient sum
+// cancels.  The Laplacian march (lap3_matvec_kernel) gives each CTA a
+// 32 x 64 tile of the (x1, x2) plane and a chunk of planes (sized so that
+// the grid fills the SMs two CTAs deep in one wave: 32 planes at 256^3,
+// 8 at 256 x 256 x 64), each thread a column of 8 knots along x1; v's
+// planes with a one-knot halo and counts' tiles stream through a ring of 3
+// with cp.async (16 bytes a copy on 16-byte aligned rows), two planes
+// ahead; each thread keeps Q v of the plane below and the rest of that
+// plane's sum in registers, so the march takes one barrier a plane.  The
+// halo planes below and above the slab (Slab3) give Q v there from their
+// own plane; points past the lattice's edges are zeros that the masks
+// multiply.  Its bound is the bytes of one pass: v and counts read, A v
+// written, 12 bytes a knot, 0.0603 ms at 256^3 (utils/roofline.py); the
+// halo points (9.6 % more v within a plane, 2 planes a chunk) come mostly
+// from L2.  About 40 floating-point operations a knot leave it far from
+// the CUDA cores' peak.
+#include <algorithm>
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace mvtv {
@@ -477,14 +511,14 @@ __device__ __forceinline__ void gram_stage3(const Point3& P, float (&pv)[7], flo
 }
 
 // b given: r0 = b - A v; fused: b = oty + rho (dta + u_scale dtu) formed
-// in registers; matvec (B13s only): A v.
+// in registers.  (Mode 0, B13s's matvec A v, is lap3_matvec_kernel below.)
 enum Gram3Mode : int { GRAM3_MATVEC = 0, GRAM3_B_GIVEN = 1, GRAM3_FUSED = 2 };
 
-// The knots' inputs besides v (counts; counts, b; or counts, oty, dta,
-// dtu) and B13's shared memory, in floats: 4 planes of v, one stage value
-// per block and point, 3 planes of the knots' inputs.
+// The knots' inputs besides v (counts, b; or counts, oty, dta, dtu) and
+// B13's shared memory, in floats: 4 planes of v, one stage value per block
+// and point, 3 planes of the knots' inputs.
 __host__ __device__ constexpr int gram3_inputs(int mode) {
-  return mode == GRAM3_MATVEC ? 1 : (mode == GRAM3_B_GIVEN ? 2 : 4);
+  return mode == GRAM3_B_GIVEN ? 2 : 4;
 }
 constexpr int gram3_smem_floats(int mode) {
   return 4 * kThPts + 7 * kPts + 3 * gram3_inputs(mode) * kT1 * kT2;
@@ -598,11 +632,150 @@ gram3_march_kernel(const float* __restrict__ v, const float* __restrict__ counts
       acc += rho * (sc.s[5] * sc.s[5]) * achain12<kBin5>(d_s + 5 * kPts, 0, pt);
       acc += rho * (sc.s[6] * sc.s[6]) * achain12<kBin6>(d_s + 6 * kPts, 0, pt);
       const float vc = v_s[(s & 3) * kThPts + (k1 + 1) * kTh2 + (k2 + 1)];
-      out[size_t(p) * plane + knot_off] = MODE == GRAM3_MATVEC ? cv * vc + acc
-                                                                : bv - (cv * vc + acc);
+      out[size_t(p) * plane + knot_off] = bv - (cv * vc + acc);
     }
     cp_async4_wait<1>();
     __syncthreads();
+  }
+}
+
+// ---- B13s's matvec: a march of per-axis Laplacians ----
+//
+// A v = counts v + rho (P v + L_0 (Q v)) on a plane slab (see the source
+// note): P and Q are 9-point stencils within a plane, L_0 a 3-plane
+// stencil along the march.  A CTA owns a kLapT1 x kLapT2 tile of the (x1,
+// x2) plane and a chunk of planes along axis 0; each thread owns a column
+// of kLapRows knots along x1 at one x2, so its x1 neighbours are its own
+// registers and its x2 neighbours the next threads' values in shared
+// memory.  v's planes (the tile and a one-knot halo) and counts' (the
+// tile) stream through a ring of kLapRing slots with cp.async, two planes
+// ahead; the points past the lattice's edges (and past a remainder
+// tile's) are zeros, written once, which the masks multiply or no store
+// reads.  At plane j each thread forms Q v and P v of its knots, finishes
+// plane j - 1 with the forward term of L_0 and stores it, and keeps plane
+// j's Q v and the rest of its sum in registers: one barrier a plane.
+constexpr int kLapT1 = 32, kLapT2 = 64, kLapRows = 8;
+constexpr int kLapThreads = kLapT2 * (kLapT1 / kLapRows);
+// CTAs per SM the launch bounds ask for and the grid is sized to fill in
+// one wave: two leave a thread 128 registers, which the columns use
+// without spilling (127; four CTAs at 64 registers spilled and ran 21 %
+// slower at 256^3, three at 80 registers 7 %); a chunk is at least
+// kLapMinChunk planes (each chunk reads two halo planes).
+constexpr int kLapCtas = 2, kLapMinChunk = 4;
+// A slot: v's plane, kLapT1 + 2 rows of kLapStride floats with the tile's
+// x2 = 0 at column kLapPad (16-byte aligned) and x2 = -1 before it, then
+// counts' tile, kLapT1 rows of kLapT2.
+constexpr int kLapPad = 4, kLapStride = kLapPad + kLapT2 + 4;
+constexpr int kLapV = (kLapT1 + 2) * kLapStride, kLapSlot = kLapV + kLapT1 * kLapT2;
+constexpr int kLapRing = 3;
+constexpr int kLapSmemBytes = int(sizeof(float)) * kLapRing * kLapSlot;
+
+__global__ void __launch_bounds__(kLapThreads, kLapCtas)
+lap3_matvec_kernel(const float* __restrict__ v, const float* __restrict__ counts,
+                   const float* __restrict__ rho_p, Scales7 sc, int chunk, int vec,
+                   float* __restrict__ out, Lat3 L, Slab3 sl) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, tx = tid % kLapT2, ty = tid / kLapT2;
+  const int o1 = blockIdx.y * kLapT1, o2 = blockIdx.x * kLapT2;  // the tile's first knot
+  const int c0 = blockIdx.z * chunk, c1 = min(c0 + chunk, L.m0);
+  const int nsteps = c1 - c0 + 2;  // planes c0 - 1 .. c1
+  const int plane = L.m1 * L.m2;   // in-plane offsets fit an int (checked at launch)
+
+  for (int i = tid; i < kLapRing * kLapSlot; i += kLapThreads) smem[i] = 0.f;
+  __syncthreads();
+
+  // Rows x1 = r0 + r (r < rows) of a plane src, columns x2 = o2 + c for c
+  // in [-halo, kLapT2 + halo), into dst + r stride + c: the points inside
+  // the lattice only, 16 bytes a copy where vec allows.
+  auto copy_tile = [&](float* dst, const float* src, int r0, int rows, int stride, int halo) {
+    if (vec) {  // 16-byte copies of the tile's columns, 4-byte ones of the halo columns
+      const int n16 = rows * (kLapT2 / 4);
+      for (int i = tid; i < n16 + 2 * halo * rows; i += kLapThreads) {
+        const bool wide = i < n16;
+        const int r = wide ? i / (kLapT2 / 4) : (i - n16) >> 1;
+        const int c = wide ? 4 * (i % (kLapT2 / 4)) : ((i - n16) & 1 ? kLapT2 : -1);
+        const int x1 = r0 + r, x2 = o2 + c;
+        if (x1 < 0 || x1 >= L.m1 || x2 < 0 || x2 >= L.m2) continue;
+        if (wide)
+          cp_async16f(dst + r * stride + c, src + x1 * L.m2 + x2);
+        else
+          cp_async4(dst + r * stride + c, src + x1 * L.m2 + x2);
+      }
+    } else {
+      const int width = kLapT2 + 2 * halo;
+      for (int i = tid; i < rows * width; i += kLapThreads) {
+        const int r = i / width, c = i % width - halo;
+        const int x1 = r0 + r, x2 = o2 + c;
+        if (x1 >= 0 && x1 < L.m1 && x2 >= 0 && x2 < L.m2)
+          cp_async4(dst + r * stride + c, src + x1 * L.m2 + x2);
+      }
+    }
+  };
+  // Step s's slot: local plane j = c0 - 1 + s of v (the halo planes past
+  // the slab) and, on the chunk's planes, of counts.
+  auto load = [&](int s) {
+    if (s >= nsteps) return;
+    const int j = c0 - 1 + s;
+    float* slot = smem + (s % kLapRing) * kLapSlot;
+    const float* src = j < 0 ? sl.lo : (j >= L.m0 ? sl.hi : v + size_t(j) * plane);
+    copy_tile(slot + kLapPad, src, o1 - 1, kLapT1 + 2, kLapStride, 1);
+    if (j >= c0 && j < c1)
+      copy_tile(slot + kLapV, counts + size_t(j) * plane, o1, kLapT1, kLapT2, 0);
+  };
+
+  // This thread's knots: x1 = k1 + k (k < kLapRows) at x2; the masks of
+  // L_2 at them, M_2(x) and M_2(x - e_2), with M_2(-1) = 0 (L_1's below).
+  const int k1 = o1 + ty * kLapRows, x2 = o2 + tx;
+  const bool col_in = x2 < L.m2;
+  const float m2f = x2 < L.m2 - 1 ? 1.f : 0.f, m2b = x2 >= 1 ? 1.f : 0.f;
+  const float rho = *rho_p;
+
+  load(0);
+  cp_async4_commit();
+  load(1);
+  cp_async4_commit();
+  float qp[kLapRows] = {}, acc[kLapRows] = {};
+  for (int s = 0; s < nsteps; ++s) {
+    const int j = c0 - 1 + s, g = sl.off + j;  // local and global plane
+    cp_async4_wait<1>();
+    __syncthreads();  // plane j has landed; slot (s + 2) mod kLapRing is free
+    load(s + 2);
+    cp_async4_commit();
+
+    // v and L_2 v on rows k1 - 1 .. k1 + kLapRows of this column.
+    const float* slot = smem + (s % kLapRing) * kLapSlot;
+    const float* col = slot + kLapPad + tx + ty * kLapRows * kLapStride;
+    const float* cnt = slot + kLapV + tx + ty * kLapRows * kLapT2;
+    float w[kLapRows + 2], t[kLapRows + 2];
+#pragma unroll
+    for (int i = 0; i < kLapRows + 2; ++i) {
+      const float* q = col + i * kLapStride;
+      w[i] = q[0];
+      t[i] = m2f * (q[0] - q[1]) + m2b * (q[0] - q[-1]);
+    }
+    // Q v of plane j; P v too where j is a plane of this chunk.
+    // e0 = M_0(g - 1), the mask of the axis-0 difference between planes
+    // j - 1 and j: L_0's forward term at plane j - 1, its backward one at j.
+    const bool mine = s >= 1 && s <= nsteps - 2;
+    const float e0 = edge_global(g - 1, sl.m0g);
+#pragma unroll
+    for (int k = 0; k < kLapRows; ++k) {
+      const float m1f = k1 + k < L.m1 - 1 ? 1.f : 0.f, m1b = k1 + k >= 1 ? 1.f : 0.f;
+      const float l1 = m1f * (w[k + 1] - w[k + 2]) + m1b * (w[k + 1] - w[k]);
+      const float l12 = m1f * (t[k + 1] - t[k + 2]) + m1b * (t[k + 1] - t[k]);
+      // fd_binaries(3) order: s0 (1,1,1), s1 (0,0,1), s2 (0,1,0), s3 (0,1,1),
+      // s4 (1,0,0), s5 (1,0,1), s6 (1,1,0); each s^2 rounded first.
+      const float q = (sc.s[4] * sc.s[4]) * w[k + 1] + (sc.s[6] * sc.s[6]) * l1 +
+                      (sc.s[5] * sc.s[5]) * t[k + 1] + (sc.s[0] * sc.s[0]) * l12;
+      if (s >= 2 && col_in && k1 + k < L.m1)  // plane j - 1 is done: its forward L_0 term
+        out[size_t(j - 1) * plane + (k1 + k) * L.m2 + x2] = acc[k] + rho * (e0 * (qp[k] - q));
+      if (mine) {
+        const float p = (sc.s[2] * sc.s[2]) * l1 + (sc.s[1] * sc.s[1]) * t[k + 1] +
+                        (sc.s[3] * sc.s[3]) * l12;
+        acc[k] = cnt[k * kLapT2] * w[k + 1] + rho * (p + e0 * (q - qp[k]));
+      }
+      qp[k] = q;
+    }
   }
 }
 
@@ -698,11 +871,40 @@ int launch_gram3(int mode, const float* v, const float* counts, const float* b, 
     MVTV_GRAM3(GRAM3_B_GIVEN);
   else if (mode == GRAM3_FUSED)
     MVTV_GRAM3(GRAM3_FUSED);
-  else if (kSlab && mode == GRAM3_MATVEC)
-    MVTV_GRAM3(GRAM3_MATVEC);
   else
     return int(cudaErrorInvalidValue);
 #undef MVTV_GRAM3
+  return int(cudaGetLastError());
+}
+
+// B13s's matvec: one launch of the Laplacian march, its chunk of planes
+// sized so that the grid fills the card's SMs kLapCtas deep in one wave.
+int launch_lap3_matvec(const float* v, const float* counts, const float* rho, Scales7 sc,
+                       float* out, Lat3 L, const Slab3& sl, cudaStream_t s) {
+  if ((long long)L.m1 * L.m2 > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  static int sms[64] = {};
+  int dev = 0;
+  MVTV_CHECK(int(cudaGetDevice(&dev)));
+  if (dev < 0 || dev >= 64) return int(cudaErrorInvalidDevice);
+  if (sms[dev] == 0) {
+    int n = 0;
+    MVTV_CHECK(int(cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)));
+    MVTV_CHECK(int(cudaFuncSetAttribute(lap3_matvec_kernel,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        kLapSmemBytes)));
+    sms[dev] = n;
+  }
+  const long long tiles =
+      (long long)((L.m2 + kLapT2 - 1) / kLapT2) * ((L.m1 + kLapT1 - 1) / kLapT1);
+  const long long chunks = std::max<long long>(1, (long long)sms[dev] * kLapCtas / tiles);
+  const int chunk = int(std::max<long long>(kLapMinChunk, (L.m0 + chunks - 1) / chunks));
+  auto aligned = [](const float* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const int vec = L.m2 % 4 == 0 && aligned(v) && aligned(sl.lo) && aligned(sl.hi) &&
+                  aligned(counts);
+  const dim3 grid((L.m2 + kLapT2 - 1) / kLapT2, (L.m1 + kLapT1 - 1) / kLapT1,
+                  (L.m0 + chunk - 1) / chunk);
+  lap3_matvec_kernel<<<grid, kLapThreads, kLapSmemBytes, s>>>(v, counts, rho, sc, chunk, vec,
+                                                               out, L, sl);
   return int(cudaGetLastError());
 }
 
@@ -771,7 +973,8 @@ extern "C" int mvtv_gram_tiled_3d(int mode, const float* v, const float* counts,
 
 // B13s entry point: B13 on the (m0, m1, m2) plane slab whose plane 0 is
 // global plane row_off of m0g, v_lo and v_hi v's planes below and above it;
-// modes 1 and 2 as B13's, mode 0 the matvec (counts + rho D'D) v.
+// modes 1 and 2 as B13's (the plane march), mode 0 the matvec (counts +
+// rho D'D) v (the Laplacian march; b, oty, dta, dtu and uscale unread).
 extern "C" int mvtv_gram_tiled_3d_shard(int mode, const float* v, const float* v_lo,
                                         const float* v_hi, const float* counts, const float* b,
                                         const float* oty, const float* dta, const float* dtu,
@@ -782,6 +985,9 @@ extern "C" int mvtv_gram_tiled_3d_shard(int mode, const float* v, const float* v
   using namespace mvtv;
   if (row_off < 0 || m0 < 1 || row_off + m0 > m0g) return int(cudaErrorInvalidValue);
   const Slab3 sl{v_lo, v_hi, In7{}, row_off, m0g};
+  if (mode == GRAM3_MATVEC)
+    return launch_lap3_matvec(v, counts, rho, Scales7{{s0, s1, s2, s3, s4, s5, s6}}, out,
+                              Lat3{m0, m1, m2}, sl, static_cast<cudaStream_t>(stream));
   return launch_gram3<true>(mode, v, counts, b, oty, dta, dtu, rho, uscale,
                             Scales7{{s0, s1, s2, s3, s4, s5, s6}}, out, Lat3{m0, m1, m2}, sl,
                             static_cast<cudaStream_t>(stream));

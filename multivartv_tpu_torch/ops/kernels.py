@@ -46,7 +46,10 @@ and B11s have no ADMM caller, as in the JAX package.
 sharded PCG's matvec (the JAX package leaves it to XLA).  B12s and B13s
 are B12's and B13's plane marches in a slab mode (one rank's plane slab of
 a 3-D lattice, the halo planes read in place of the wrapped ones), and
-``gram_matvec_tiled_3d_shard`` is B13s in its matvec mode.
+``gram_matvec_tiled_3d_shard``, the sharded p = 3 PCG's matvec, is a march
+of its own over the same slab: (counts + rho D'D) v as per-axis Neumann
+Laplacians, 9-point stencils within a plane and a 3-plane one along the
+march (csrc/tiled3.cu, ``lap3_matvec_kernel``).
 ``xupdate_tridiag_segment`` is T1 in its segment mode: one rank's segment
 of a chain, solved for b and the unit vectors at its two ends in one
 launch (the p = 1 partition solve, solver/tridiag.py); ``partition_finish``
@@ -642,8 +645,8 @@ def gram_residual_tiled_3d_shard_reference(b, v, halo_top, halo_bot, row_off: in
 
 def gram_matvec_tiled_3d_shard_reference(v, halo_top, halo_bot, row_off: int, m0_global: int,
                                          counts, rho, scales):
-    """(counts + rho D'D) v on a plane slab: B13s's matvec mode, the
-    sharded PCG's matvec at p = 3."""
+    """(counts + rho D'D) v on a plane slab, the sharded PCG's matvec at
+    p = 3: the block sum of B13s's plain version."""
     return _gram3_slab(v, halo_top, halo_bot, row_off, m0_global, counts, rho, scales)
 
 
@@ -1552,8 +1555,9 @@ def dual_update_tiled_3d_shard(theta: torch.Tensor, u: Sequence[torch.Tensor], h
 
 def _launch_gram3_slab(mode: int, name: str, v, top: int, bot: int, row_off, m0_global, counts,
                        b, parts, rho, scales) -> torch.Tensor:
-    """B13s (csrc/tiled3.cu) on CUDA tensors, v's halo planes given as
-    pointers, counted under ``name``."""
+    """mvtv_gram_tiled_3d_shard (csrc/tiled3.cu) on CUDA tensors, v's halo
+    planes given as pointers, counted under ``name``: B13s's plane march in
+    modes 1 and 2, the Laplacian march in mode 0 (the matvec)."""
     dev = v.device
     oty, dta, u_scale, dtu = parts if parts is not None else (None, None, None, None)
     out = torch.empty_like(v)
@@ -1599,8 +1603,9 @@ def gram_residual_tiled_3d_shard(b: Optional[torch.Tensor], v: torch.Tensor, hal
 def gram_matvec_tiled_3d_shard(v: torch.Tensor, halo_top, halo_bot, row_off: int,
                                m0_global: int, counts: torch.Tensor, rho,
                                scales: Sequence[float]) -> torch.Tensor:
-    """(counts + rho D'D) v on a plane slab: B13s in its matvec mode, the
-    sharded PCG's matvec at p = 3."""
+    """(counts + rho D'D) v on a plane slab, the sharded PCG's matvec at
+    p = 3: on the card the Laplacian march (csrc/tiled3.cu), one launch;
+    on the CPU its plain version, the block sum of B13s's."""
     shape = tuple(v.shape)
     _check_lattices(shape, v, counts, rank=3)
     _check_blocks3(shape, scales)

@@ -17,14 +17,19 @@ statistic, and the pencil transposes of the DCT preconditioner
 the fold axis dp and the spectral CG across ranks raise
 NotImplementedError (ROADMAP A11).
 
-Set-up is whole on every rank: each rank bins all the data, builds the
-global operators and takes lambda_max (float64) from the whole problem,
-then cuts its slabs; rank 0's lambda grid is broadcast so that every rank
-solves the same path.  The lattice-sized set-up arrays on every rank are a
-memory limit (ROADMAP).  The CV folds run one after another through the
-sharded single-problem route, as ``CVConfig(vmap_folds=False)`` does; the
-JAX package's fold batch axis "dp" is not ported.  theta is gathered to
-every rank at the end, so every rank returns the same ``MVTVModel``.
+Set-up is whole on every rank, and then dropped: each rank bins all the
+data, builds the global operators and takes lambda_max (float64) from the
+whole problem; rank 0's lambda grid is broadcast so that every rank solves
+the same path.  Then each rank cuts its slab of the operators and the
+problem and keeps no reference to the whole ones (the JAX package rebinds
+them to their sharded placements, fit.py:325-326); each CV fold's problem
+is cut as it is built, so one whole fold problem exists at a time.  The
+CV folds run one after another through the sharded single-problem route,
+as ``CVConfig(vmap_folds=False)`` does; the JAX package's fold batch axis
+"dp" is not ported.  The path's thetas and the chosen one go to the host
+one lambda at a time (halo.gather_rows_to_host), so after the cut no rank
+holds a lattice-sized array on its device, and every rank returns the
+same ``MVTVModel``.
 """
 
 from __future__ import annotations
@@ -137,14 +142,15 @@ def mvtv_sharded(data, y, m=None, mesh=None, n_lambda: int = 100, ftrue=None, la
     spatial_axes: mesh-axis names per lattice axis; only axis 0 may be
         cut.  batch_axis: accepted for the JAX signature; the folds run one
         after another."""
-    from multivartv_tpu_torch.api import LatticeCut, _cross_validated_fit, _fit_configs, _setup
+    from multivartv_tpu_torch.api import (LatticeCut, _cross_validated_fit, _fit_configs,
+                                          _lambda_grid, _setup)
 
     if solver_config is None:
         solver_config = SolverConfig()
     path_config, cv_config = _fit_configs(n_lambda, folds, path_config, cv_config)
     cv_config = dataclasses.replace(cv_config, vmap_folds=False)
-    setup = _setup(data, y, m, mesh, solver_config, mesh_config, device)
-    spec, ops = setup[2], setup[5]
+    data_np, y_np, spec, data_t, y_t, ops, problem = _setup(data, y, m, mesh, solver_config,
+                                                            mesh_config, device)
     if device_mesh is None:
         device_mesh, _ = default_lattice_mesh(len(spec.m))
     solver_config = _sharded_solver_config(solver_config, device_mesh, spatial_axes)
@@ -154,10 +160,13 @@ def mvtv_sharded(data, y, m=None, mesh=None, n_lambda: int = 100, ftrue=None, la
                                   f"p = 1) per rank (got m = {spec.m}, {len(ops.binaries)} "
                                   f"blocks, {device_mesh.size} ranks; ROADMAP A11)")
     slab = RowSlab(device_mesh, spec.m)
-    cut = LatticeCut(grid=lambda g: _broadcast(g, device_mesh),
-                     operators=lambda o: shard_operators(o, slab),
-                     problem=lambda pr: shard_problem(pr, slab),
-                     gather=lambda t: halo.gather_rows(t, slab))
-    del ops
-    return _cross_validated_fit(setup, cut, ftrue, lambdas, verbose, solver_config,
-                                path_config, cv_config)
+    grid, path_config = _lambda_grid(ops, problem, lambdas, path_config, verbose,
+                                     share=lambda g: _broadcast(g, device_mesh))
+    # From here on only this rank's slab of the operators and the problem
+    # is alive: rebinding drops the whole ones (and every spectral-CG
+    # layout, which shard_operators leaves out).
+    ops, problem = shard_operators(ops, slab), shard_problem(problem, slab)
+    cut = LatticeCut(problem=lambda pr: shard_problem(pr, slab),
+                     gather=lambda t: halo.gather_rows_to_host(t, slab))
+    return _cross_validated_fit((data_np, y_np, spec, data_t, y_t), ops, problem, grid, cut,
+                                ftrue, verbose, solver_config, path_config, cv_config)

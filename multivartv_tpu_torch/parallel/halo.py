@@ -19,7 +19,8 @@ sharded fit lives in this module, on ``torch.distributed``:
     (``all_to_all_single``): the DCT preconditioner transforms axis 1 (and
     axis 2 at p = 3) on the slabs and axis 0 on the pencils, slabs of axis
     1 with axis 0 whole;
-  * ``gather_rows`` (every rank gets the whole lattice) and
+  * ``gather_rows`` (every rank gets the whole lattice), its host form
+    ``gather_rows_to_host`` (the fit's thetas, one lambda at a time) and
     ``gather_fitted`` (every rank gets every sample's fitted value).
 
 A group of size 1 makes no call.  The stencils of the operator D on the
@@ -141,6 +142,16 @@ def gather_rows(x: torch.Tensor, slab: RowSlab) -> torch.Tensor:
     out = [torch.empty_like(pad) for _ in range(grp.size)]
     dist.all_gather(out, pad, group=grp.group)
     return torch.cat([o.narrow(axis, 0, r) for o, r in zip(out, rows)], dim=axis)
+
+
+def gather_rows_to_host(x: torch.Tensor, slab: RowSlab) -> torch.Tensor:
+    """The whole lattice on the host (a CPU tensor) on every rank from each
+    rank's slab x; a leading axis (the path's lambdas) is gathered one
+    element at a time, so the device holds one gathered lattice at most,
+    and only until its copy."""
+    if x.ndim > len(slab.m):
+        return torch.stack([gather_rows_to_host(t, slab) for t in x])
+    return gather_rows(x, slab).cpu()
 
 
 def rows_to_cols(x: torch.Tensor, slab: RowSlab) -> torch.Tensor:

@@ -126,7 +126,8 @@ def gram_residual_tiled_3d_sharded(slab: RowSlab, b, v, counts, rho, scales, rhs
 
 def gram_matvec_tiled_3d_sharded(slab: RowSlab, v, counts, rho, scales):
     """(counts + rho D'D) v on this rank's plane slab with v's halo planes
-    (B13s in its matvec mode): the sharded PCG's matvec at p = 3."""
+    (the Laplacian march of csrc/tiled3.cu): the sharded PCG's matvec at
+    p = 3."""
     top, bot = halo_pair(v, slab.group)
     return K.gram_matvec_tiled_3d_shard(v, top, bot, slab.row_off, slab.m[0], counts, rho,
                                         scales)

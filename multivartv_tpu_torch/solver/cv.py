@@ -42,36 +42,33 @@ class CVResult(NamedTuple):
 
 
 def fold_problems(spec: MeshSpec, data: torch.Tensor, y: torch.Tensor,
-                  fold_labels: torch.Tensor, folds: int) -> Problem:
+                  fold_labels: torch.Tensor, folds: int,
+                  fold_map: Optional[Callable[[Problem], Problem]] = None) -> Problem:
     """A fold-batched Problem (leading axis fold): fold f trains on the
-    samples whose label is not f."""
+    samples whose label is not f.  fold_map: applied to each fold's problem
+    as it is built, before the next one is (parallel/fit.py cuts it into
+    this rank's slab, so that one whole fold problem exists at a time)."""
     labels = fold_labels.to(y.device)
-    return stack_problems([build_problem(spec, data, y, train_mask=(labels != f).to(y.dtype))
+    keep = (lambda pr: pr) if fold_map is None else fold_map
+    return stack_problems([keep(build_problem(spec, data, y,
+                                              train_mask=(labels != f).to(y.dtype)))
                            for f in range(folds)])
 
 
 def cross_validate(ops: Operators, problems: Problem, lambdas: torch.Tensor,
-                   cfg: SolverConfig, pcfg: PathConfig, cvcfg: CVConfig,
-                   fold_map: Optional[Callable[[Problem], Problem]] = None) -> CVResult:
+                   cfg: SolverConfig, pcfg: PathConfig, cvcfg: CVConfig) -> CVResult:
     """The warm-started path of every fold and its held-out MSE per lambda
     (test_mse, solvers.cpp:278-288), computed inside the path, so the fold
-    paths store no theta.  fold_map: applied to each fold's problem before
-    its solve (parallel/fit.py cuts it into this rank's row slab); the
-    folds then run one after another."""
+    paths store no theta: all folds in one batched path, or with
+    vmap_folds=False one after another (the sharded fit's folds, each on
+    this rank's slab)."""
     mse_only = dataclasses.replace(pcfg, store="mse")
     if cvcfg.vmap_folds:
-        if fold_map is not None:
-            raise ValueError("cross_validate maps fold problems only with vmap_folds=False")
         res = path_lib.solve_path_batch(ops, problems, lambdas, cfg, mse_only)
         test_mse, iters = res.test_mse, res.iters
     else:
         p = len(ops.m)
-
-        def fold(f):
-            pr = problem_at(problems, f, p)
-            return pr if fold_map is None else fold_map(pr)
-
-        outs = [path_lib.solve_path(ops, fold(f), lambdas, cfg, mse_only)
+        outs = [path_lib.solve_path(ops, problem_at(problems, f, p), lambdas, cfg, mse_only)
                 for f in range(int(problems.counts.shape[0]))]
         test_mse = torch.stack([o.test_mse for o in outs])
         iters = torch.stack([o.iters for o in outs])

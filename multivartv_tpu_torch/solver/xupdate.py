@@ -59,8 +59,8 @@ Operators cut to slabs (a sharded fit, parallel/) take the same plain PCG
 of the configured x-solver on the slabs: at p = 2 its r0 from
 ``gram_residual_tiled_2d_shard`` (B9s) given b and its matvec B9s's kernel
 in matvec mode; at p = 3 its r0 from ``gram_residual_tiled_3d_shard``
-(B13s) with b formed in the kernel from the carries and its matvec B13s's
-matvec mode; every dot a sum over the row group, and the DCT
+(B13s) with b formed in the kernel from the carries and its matvec
+``gram_matvec_tiled_3d_shard`` (the Laplacian march); every dot a sum over the row group, and the DCT
 preconditioner through the pencil transpose (JAX xupdate.py:361-371 off
 the TPU; on a TPU the JAX package runs the bf16 spectral CG there).  At
 p = 1 under dct_pcg the x-update is the partition solve
@@ -363,9 +363,10 @@ def _solve_plain(ops: Operators, counts, cbar, b, rho, x0, cfg: SolverConfig, ti
     """The plain PCG (JAX xupdate.py:502-527; see module doc).  On slabs
     (ops.slab, the shard route) its r0 = b - (counts + rho D'D) x0 is B9s
     given b (p = 2) or B13s with b formed from rhs_parts (p = 3, where the
-    route passes them), its matvec B9s's or B13s's matvec mode, all with
-    v's halos (plain stencils at p = 1); every dot is a sum over the row
-    group, and the DCT preconditioner runs through the pencil transpose
+    route passes them), its matvec B9s's matvec mode or the p = 3 slab
+    matvec (gram_matvec_tiled_3d_shard), all with v's halos (plain
+    stencils at p = 1); every dot is a sum over the row group, and the DCT
+    preconditioner runs through the pencil transpose
     (_sharded_dct_solve).  That is the JAX package's sharded x-update off
     the TPU (xupdate.py: 361-371, 502-527); on a TPU it runs the bf16
     spectral-correction CG (ROADMAP: the spectral CG across ranks)."""

@@ -77,3 +77,40 @@ class StepTimer:
         total = sum(self.totals.values()) or 1.0
         return "\n".join(f"{k:24s} {v:8.3f}s ({100 * v / total:5.1f}%)"
                          for k, v in sorted(self.totals.items(), key=lambda kv: -kv[1]))
+
+
+def lattice_tensors(shape) -> tuple:
+    """(tensors, bytes): the live tensors whose trailing shape is `shape`,
+    counted after a gc pass, and the bytes of their distinct storages."""
+    import gc
+    gc.collect()
+    shape, n, storages = tuple(shape), 0, {}
+    for o in gc.get_objects():
+        if issubclass(type(o), torch.Tensor) and tuple(o.shape[-len(shape):]) == shape:
+            n += 1
+            st = o.untyped_storage()
+            storages[(st.device, st.data_ptr())] = st.nbytes()
+    return n, sum(storages.values())
+
+
+@contextlib.contextmanager
+def solve_census(shape, first_only: bool = False):
+    """Takes ``lattice_tensors(shape)`` as each ADMM solve of the enclosed
+    block starts (before its first iteration), or as the first one starts
+    under first_only.  Yields the list of counts, one (tensors, bytes) a
+    census, and the seconds the censuses took (a one-element list)."""
+    from ..solver import admm
+    solve, seen, seconds = admm.admm_solve, [], [0.0]
+
+    def census(*args, **kwargs):
+        if not (first_only and seen):
+            t0 = time.perf_counter()
+            seen.append(lattice_tensors(shape))
+            seconds[0] += time.perf_counter() - t0
+        return solve(*args, **kwargs)
+
+    admm.admm_solve = census
+    try:
+        yield seen, seconds
+    finally:
+        admm.admm_solve = solve

@@ -248,3 +248,26 @@ def test_profiling_hooks(tmp_path):
         with timer.phase(name):
             pass
     assert set(timer.totals) == {"a", "b"} and "a" in timer.report()
+
+
+def test_solve_census_counts_lattice_tensors(setup):
+    """solve_census takes lattice_tensors as each ADMM solve starts (only
+    the first under first_only) and puts admm_solve back: a tensor of the
+    lattice's trailing shape made between two solves adds one to the count
+    and its bytes to the storages'."""
+    from multivartv_tpu_torch.utils import profiling
+    _, _, ops, pr, lambdas = setup
+    lam = torch.tensor(lambdas[2], dtype=torch.float32)
+    state = admm.initial_state(ops, pr, lam / 5)
+    cfg, solve = SolverConfig(max_iters=2), admm.admm_solve
+    with profiling.solve_census((5, 5)) as (seen, seconds):
+        admm.admm_solve(ops, pr, lam, state, cfg)
+        extra = torch.zeros(3, 5, 5)
+        admm.admm_solve(ops, pr, lam, state, cfg)
+    with profiling.solve_census((5, 5), first_only=True) as (first, _):
+        for _ in range(2):
+            admm.admm_solve(ops, pr, lam, state, cfg)
+    assert admm.admm_solve is solve
+    assert len(seen) == 2 and len(first) == 1 and seconds[0] > 0
+    assert seen[1] == (seen[0][0] + 1, seen[0][1] + extra.numel() * extra.element_size())
+    assert first[0][0] == seen[1][0]

@@ -56,6 +56,15 @@ X_SOLVER_FITS = {2: "dct_direct", 4: "jacobi_pcg"}
 # port's lambda_max), where the solves take tens of iterations.
 ONE_RANK = {"p3": ((4, 4, 2), (0.3, 0.1, 0.03)), "p1": (M1, (0.3, 0.1, 0.03))}
 PIECES_M3, PIECES_N1 = (11, 9, 7), 40
+# The whole-lattice census (test_sharded_fit_keeps_no_whole_lattice): 2
+# ranks, folds 3, N_LAMBDA lambdas; p = 3 keeps only the MSEs on its path,
+# so that it refits at the chosen lambda, and p = 2 keeps the path's
+# thetas.  The census is taken as each solve starts, so a few iterations
+# a solve do (CAP's would take the file's two census fits from ~15 s to
+# ~50 s).  (m, path store, ADMM solves a rank.)
+CENSUS_WORLD, CENSUS_FOLDS, CENSUS_CAP = 2, 3, 4
+CENSUS = {"p3": ((16, 12, 10), "mse", CENSUS_FOLDS * N_LAMBDA + N_LAMBDA + 1),
+          "p2": ((32, 24), "fitted", CENSUS_FOLDS * N_LAMBDA + N_LAMBDA)}
 
 _data = ranks_lib.fit_data
 
@@ -86,6 +95,12 @@ def spawned(tmp_path_factory):
             jobs[_name(m, folds, x_solver)] = ("mvtv_sharded", dict(
                 m=m, seed=11, n_lambda=N_LAMBDA, folds=folds, cfg=cfg, labels_file=labels))
         out[world] = ranks_lib.Ranks(world, str(tmp), jobs)
+    jobs = {case: ("whole_lattice_census", dict(m=m, seed=11, n_lambda=N_LAMBDA,
+                                                folds=CENSUS_FOLDS,
+                                                cfg=dict(max_iters=CENSUS_CAP),
+                                                store=store))
+            for case, (m, store, _) in CENSUS.items()}
+    out["census"] = ranks_lib.Ranks(CENSUS_WORLD, str(tmp_path_factory.mktemp("census")), jobs)
     return out
 
 
@@ -188,6 +203,31 @@ def test_mvtv_sharded_one_rank_matches_jax(case):
     r = dict(lambdas=got.lambdas, cv_mses=got.cv_mses, best=got.lambda_minmse_ind,
              theta=got.theta_lattice, fitted=got.fitted)
     _check_fit(r, want, y, 2e-5)
+
+
+@pytest.mark.parametrize("case", sorted(CENSUS))
+def test_sharded_fit_keeps_no_whole_lattice(spawned, case):
+    """After the cut no rank holds a tensor of the whole lattice's shape:
+    mvtv_sharded on 2 gloo ranks (p = 3 at 16 x 12 x 10, p = 2 at 32 x 24;
+    3 folds, 3 lambdas) counts, at the start of every ADMM solve of the
+    CV, the full path and the refit, the live tensors whose trailing shape
+    is the lattice's (after a gc pass), and finds none on either rank (the
+    JAX package's devices hold only their shards).  Each count is taken
+    before its solve's first iteration, so the solves' cap (CENSUS_CAP, not
+    the file's CAP, for time) cannot change it.  The returned model is
+    whole, on the host: finite, and at p = 2 its theta is the path's at
+    the chosen lambda."""
+    m, store, solves = CENSUS[case]
+    r = {k.split("/")[1]: v for k, v in spawned["census"].result().items()
+         if k.startswith(case + "/")}
+    assert int(r["solves"]) == CENSUS_WORLD * solves
+    assert int(r["whole"]) == 0
+    assert r["theta"].shape == m and np.all(np.isfinite(r["theta"]))
+    assert r["lambdas"].shape == (N_LAMBDA,) and np.all(np.isfinite(r["cv_mses"]))
+    if store == "fitted":
+        best = int(np.argmin(r["cv_mses"]))
+        assert r["path_theta"].shape == (N_LAMBDA, int(np.prod(m)))
+        assert np.array_equal(r["path_theta"][best], r["theta"].T.reshape(-1))
 
 
 def test_refusals_name_roadmap():
@@ -351,6 +391,59 @@ def test_gram_3d_slabs_match_jax_whole_lattice(cut, mode):
             parts = (os_, ds, torch.tensor(us), us_) if mode == "fused" else None
             got.append(K.gram_residual_tiled_3d_shard(None if parts else bs, *args,
                                                       rhs_parts=parts))
+    _close(torch.cat(got).numpy(), want, 1e-5)
+
+
+def _laplacian(w, axis, mask, mask_prev):
+    """The 1-D Neumann Laplacian L_j = D_j' M_j D_j along axis j in its
+    difference form, (L_j w)(x) = M_j(x) (w(x) - w(x + e_j)) + M_j(x - e_j)
+    (w(x) - w(x - e_j)), the masks given at x and at x - e_j (0 where
+    x - e_j lies below the lattice): the neighbours past an edge (wrapped
+    here) are multiplied by 0."""
+    return (mask * (w - torch.roll(w, -1, axis))
+            + mask_prev * (w - torch.roll(w, 1, axis)))
+
+
+def _in_plane_masks(n, axis):
+    """(M_j(x), M_j(x - e_j)) of an in-plane axis of length n, shaped to
+    broadcast over a (planes, m1, m2) panel."""
+    x = torch.arange(n)
+    shape = [1, 1, 1]
+    shape[axis] = n
+    return ((x < n - 1).float().reshape(shape), (x >= 1).float().reshape(shape))
+
+
+@pytest.mark.parametrize("cut", CUTS, ids=["4-1-4", "1-8", "whole"])
+def test_gram_3d_matvec_factors_by_axis(cut):
+    """The identity B13s's matvec kernel is built on: D_b'D_b = prod_{j in
+    b} L_j, so that A v = counts v + rho (P v + L_0 (Q v)) with P = s2(0,1,0)
+    L_1 + s2(0,0,1) L_2 + s2(0,1,1) L_1 L_2 and Q = s2(1,0,0) + s2(1,1,0) L_1
+    + s2(1,0,1) L_2 + s2(1,1,1) L_1 L_2 (each s^2 rounded to float32), L_0
+    read on the global planes.  Written out in torch on each plane slab with
+    its halo planes (zeros at the global edges), the slabs together against
+    the JAX package's whole-lattice B13 in interpret mode with b = 0 (A v =
+    -r0) within 1e-5, the lattice's edges included."""
+    scales, v, _, _, counts = _kernel_inputs()
+    rho = np.float32(0.13)
+    want = -np.asarray(pk.gram_residual_tiled_3d(jnp.zeros(KM, jnp.float32), jnp.asarray(v),
+                                                 jnp.asarray(counts), jnp.float32(rho), scales,
+                                                 interpret=True, tile_rows=KT))
+    s2 = dict(zip(K.BINARIES3, (torch.tensor(np.float32(s) * np.float32(s)) for s in scales)))
+    m1f, m1b = _in_plane_masks(KM[1], 1)
+    m2f, m2b = _in_plane_masks(KM[2], 2)
+    got = []
+    for (vs, top, bot, lo), (cs, *_) in zip(_cut(v, cut), _cut(counts, cut)):
+        panel = torch.cat([top, vs, bot])          # global planes lo - 1 .. lo + r
+        l1 = _laplacian(panel, 1, m1f, m1b)
+        l2 = _laplacian(panel, 2, m2f, m2b)
+        l12 = _laplacian(l2, 1, m1f, m1b)
+        pv = s2[(0, 1, 0)] * l1 + s2[(0, 0, 1)] * l2 + s2[(0, 1, 1)] * l12
+        qv = s2[(1, 0, 0)] * panel + s2[(1, 1, 0)] * l1 + s2[(1, 0, 1)] * l2 + s2[(1, 1, 1)] * l12
+        g = torch.arange(panel.shape[0]) + (lo - 1)
+        m0 = ((g >= 0) & (g < KM[0] - 1)).float()[:, None, None]   # M_0 at each panel plane
+        q, qn, qb = qv[1:-1], qv[2:], qv[:-2]
+        l0q = m0[1:-1] * (q - qn) + m0[:-2] * (q - qb)
+        got.append(cs * vs + torch.tensor(rho) * (pv[1:-1] + l0q))
     _close(torch.cat(got).numpy(), want, 1e-5)
 
 

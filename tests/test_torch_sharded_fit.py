@@ -143,7 +143,8 @@ def test_mvtv_sharded_one_rank_matches_jax(caplog):
 def test_folds_merge_into_an_explicit_cv_config(entry):
     """mvtv and mvtv_sharded share one body: an explicit cv_config with a
     non-default folds runs `folds` folds in both, and mvtv_sharded runs
-    them one after another whatever cv_config.vmap_folds says."""
+    them one after another whatever cv_config.vmap_folds says, on its
+    slab's operators."""
     from multivartv_tpu_torch import CVConfig, api
     from multivartv_tpu_torch.solver import cv
 
@@ -151,9 +152,9 @@ def test_folds_merge_into_an_explicit_cv_config(entry):
     seen = []
     orig = cv.cross_validate
 
-    def spy(ops, problems, lambdas, cfg, pcfg, cvcfg, fold_map=None):
-        seen.append((int(problems.counts.shape[0]), cvcfg.vmap_folds, fold_map is not None))
-        return orig(ops, problems, lambdas, cfg, pcfg, cvcfg, fold_map=fold_map)
+    def spy(ops, problems, lambdas, cfg, pcfg, cvcfg):
+        seen.append((int(problems.counts.shape[0]), cvcfg.vmap_folds, ops.slab is not None))
+        return orig(ops, problems, lambdas, cfg, pcfg, cvcfg)
 
     cv.cross_validate = spy
     try:

@@ -62,6 +62,32 @@ def _mvtv_sharded(m, seed, n_lambda, folds, cfg, labels_file=None):
             "fitted": model.fitted, "key": np.asarray(model.solver_config.tiled_shard_key)}
 
 
+def _whole_lattice_census(m, seed, n_lambda, folds, cfg, store):
+    """mvtv_sharded with a census as every ADMM solve (each fold's, the full
+    path's, the refit's) starts, before its first iteration: the live torch
+    tensors whose trailing shape is the whole lattice's, counted after a gc
+    pass (utils.profiling.solve_census).  Each rank's largest count and
+    number of solves, summed over the ranks; the model's lambdas, CV MSEs
+    and theta."""
+    import torch.distributed as dist
+    from multivartv_tpu_torch.config import PathConfig, SolverConfig
+    from multivartv_tpu_torch.parallel.fit import mvtv_sharded
+    from multivartv_tpu_torch.utils.profiling import solve_census
+
+    x, y = fit_data(m, seed)
+    with solve_census(m) as (seen, _):
+        model = mvtv_sharded(x, y, m=m, n_lambda=n_lambda, folds=folds,
+                             solver_config=SolverConfig(**cfg),
+                             path_config=PathConfig(n_lambda=n_lambda, store=store),
+                             device="cpu")
+    totals = torch.tensor([max(n for n, _ in seen), len(seen)], dtype=torch.int64)
+    dist.all_reduce(totals)
+    return {"whole": totals[0].numpy(), "solves": totals[1].numpy(),
+            "lambdas": model.lambdas, "cv_mses": model.cv_mses, "theta": model.theta_lattice,
+            "path_theta": np.stack([e["theta_hat"] for e in model.models])
+            if "theta_hat" in model.models[0] else np.zeros(0)}
+
+
 def _pieces(m, seed):
     """Each collective and row-slab operation against its single-process
     version on the whole lattice (every rank holds it): the largest
@@ -249,7 +275,7 @@ def _pieces_3d(m, n1, seed):
 
 
 JOBS = {"sharded_admm": _sharded_admm, "mvtv_sharded": _mvtv_sharded, "pieces": _pieces,
-        "pieces_3d": _pieces_3d}
+        "pieces_3d": _pieces_3d, "whole_lattice_census": _whole_lattice_census}
 
 
 def _rank(rank, world, store, jobs, out):
