@@ -33,9 +33,12 @@ against the exact-f32 route with the same configs, and the 1023^2 route
 after a fixed number of iterations against the same route on the plain
 versions and against the exact-f32 route; and the sharded fit
 (multivartv_tpu_torch/parallel) as a row group of one NCCL rank on the
-card: mvtv_sharded(folds=1, n_lambda=5) at 2048^2 against the exact-f32
+card: mvtv_sharded(folds=1, n_lambda=3) at 2048^2 against the exact-f32
 route and mvtv_sharded(folds=2, n_lambda=3) at 1024^2 against the
-single-card mvtv's tie set, with its row-slab kernels B8s, B9s and B11s
+single-card mvtv's tie set, mvtv_sharded at 16^4 and with the reduced
+block set at 2048^2 (C7), and the shard route's three x-update arms at
+2048^2 (the spectral CG across ranks, xla_packed=False, spectral_cg=False),
+with its row-slab kernels B8s, B9s and B11s
 also held, on four row slabs of the 2048^2 state with real halos, against
 the whole-lattice kernels; and the two repaired routes, mvtv_one at
 16384 x 256 (no folded DCT halves) and at 16^4 (p = 4), each against the
@@ -64,11 +67,12 @@ then solve_path_checkpointed at 316^2 resumed from a manifest inside a
 chunk against one uninterrupted path, and tv_penalty against a float64
 sum.  Phase 23 drives the sharded fit at p = 3 and p = 1 on a row group of
 one NCCL rank: mvtv_sharded at 256^3 (folds 1) through B12s and B13s, the
-plane-slab modes of B12 and B13, against the exact-f32 route's cold solve,
-at 256 x 256 x 64 (folds 2) against the single-card mvtv's tie set, and on
-the fused lasso at N = 2^20 and 1e5 through T1 against the tridiag route,
-each solve capped on both sides; then the shard route's ms per iteration
-beside the single-card routes.  Phase 3 also holds B12s and B13s on plane
+plane-slab modes of B12 and B13, under the spectral CG across ranks,
+against the tiled3 route's cold solve, at 256 x 256 x 64 (folds 2) against
+the single-card mvtv's tie set, and on the fused lasso at N = 2^20 and 1e5
+through T1 against the tridiag route, each solve capped on both sides;
+the shard route's three x-update arms at 256^3; then the shard route's ms
+per iteration beside the single-card routes.  Phase 3 also holds B12s and B13s on plane
 cuts of 256 x 256 x 64 (one-plane slabs included) against their plain
 versions and the whole-lattice B12 and B13, and the p = 1 partition solve
 (T1's segment mode and the finish kernel on 4 segments of a 2^20 chain,
@@ -2975,12 +2979,29 @@ SHARD_STATS_TOL = 1e-5      # relative: the Boyd sums, summed in another order
 SHARD = ("dual_update_tiled_2d_shard", "gram_residual_tiled_2d_shard",
          "gram_matvec_tiled_2d_shard")
 # Phase 16's fits: (m, n) of bench.py's data for mvtv_sharded with folds = 1
-# and 2, and the repaired routes' mvtv_one fits (label, m, data).
+# and 2 (SHARD_FIT3 below), and the repaired routes' mvtv_one fits (label,
+# m, data).
 SHARD_FIT1 = ((2048, 2048), 1 << 22)
 SHARD_FIT2 = ((1024, 1024), 1 << 20)
+# The 2048^2 fit's grid: 3 lambdas (5 until its x-update became the spectral
+# CG across ranks, which took the 5-lambda fit from ~34 s to 69 s on an
+# H100), to keep the default run inside its time.
+SHARD_FIT1_LAMBDAS = 3
 # 3 lambdas (the 5-lambda grid's indices 0, 2, 4), not 5, to keep the
-# default run inside its time.
+# default run inside its time.  This fit keeps the exact arm
+# (xla_packed=False), the shard route's x-update before its spectral arm
+# came: under the spectral CG across ranks it took 156 s on an H100
+# (PERF.md section 6), and the default arm is the 2048^2 fit's and
+# shard_arms'.
 SHARD_FIT2_LAMBDAS = 3
+# The default arm's folds = 2 fit at p = 2: 512^2 on bench.py's data, 2
+# lambdas, against the single card's tie set as the 1024^2 fit, every solve
+# of both capped at SHARD_FIT3_CAP: its iteration is host-bound (~45 ms on
+# an H100, as at 2048^2), and uncapped lambda_max takes 748 iterations (the
+# fit 69 s; 59 s at a cap of 300).
+SHARD_FIT3 = ((512, 512), 1 << 20)
+SHARD_FIT3_LAMBDAS = 2
+SHARD_FIT3_CAP = 100
 # The folds = 2 fit's lattice as a tiled_inputs workload for the slab check.
 SHARD_HALF = (lambda: bench_data(1 << 20), (1024, 1024), 0.05)
 # compare_shard's cuts, each a tuple of slab row counts from the top: on
@@ -2996,6 +3017,44 @@ SHARD_CUTS = ((tuple(len(a) for a in np.array_split(np.arange(2048), SHARD_SLABS
 SHARD_NARROW = 2046
 REPAIRED = (("16384x256 n=2^22 (C1)", (16384, 256), lambda: bench_data(1 << 22)),
             ("16^4 n=2^18 (C2)", (16, 16, 16, 16), lambda: quad_data(1 << 18)))
+# The shard route's x-update arms (phases 16 and 23): ARMS on the slab of a
+# group of one, SHARD_ARM_ITERS iterations an arm from one warm state, and
+# a SHARD_ARM_PROFILE-iteration run under the profiler for the idle share.
+SHARD_ARM_ITERS = 30
+SHARD_ARM_PROFILE = 3
+# The one-rank spectral x-update against the single card's on the same
+# warm state, of max|x - x0|: on a group of one no collective runs and the
+# transforms take the single card's bf16 operands in its axis order, so the
+# two are equal (bit for bit at 2048^2 and 256^3 on an H100); the 1e-2 of
+# tests/test_torch_spectral.py holds only across ranks.
+SHARD_XUPDATE_TOL = 1e-6
+# Phase 16's C7 fits (lattices the shard route refused before): mvtv_sharded
+# at 16^4 (p = 4, folds 1; the packed spectral CG on plain stages) beside the
+# single-card fit of REPAIRED, at its lambda (0.05), against the exact
+# route's cold solve there; and with the reduced block set at 2048^2 (folds
+# 1; plain stages, the quartered spectral CG) against the single card's
+# spectral2 route (the same algorithm) at the chosen lambda, both capped at
+# SHARD_REDUCED_CAP.
+SHARD_P4 = ((16, 16, 16, 16), 1 << 18, (0.05,))
+SHARD_REDUCED_LAMBDAS = 3
+SHARD_REDUCED_CAP = 40
+# The 16^4 fit on the grid a user gets, SHARD_P4_GRID lambdas from
+# lambda_max (shard_p4_grid), every solve capped at SHARD_P4_CAP, beside two
+# witnesses on the same grid and cap: the single card's mvtv (its spectralN
+# route, the same spectral CG) and the shard route's exact arm
+# (xla_packed=False).  Near lambda_max every route runs to the cap (at the
+# default 3,000 the exact arm too); at the last lambda the spectral CG, on
+# one card as on the shard route, stops ~1.8e-3 above the exact route's
+# cold solve (scripts/shard_grid_witness.py; PERF.md section 7), at a cap
+# of 100 as at 3,000.  So at the chosen lambda the exact arm is held to the
+# cold solve (one-sided, LARGE_GAP) and the default arm to the single
+# card's, one-sided by SHARD_P4_STOP_GAP: two stops of one bf16 CG, which
+# on an H100 fell +1.7e-5 apart (the CPU's -2.5e-5 at a cap of 3,000), so
+# twice that; a stop of another algorithm lies ~1.8e-3 away.  The default
+# arm's gap to the cold solve is printed.
+SHARD_P4_GRID = 3
+SHARD_P4_CAP = 100
+SHARD_P4_STOP_GAP = 5e-5
 
 
 def rel_max(got, ref) -> float:
@@ -3217,14 +3276,26 @@ def phase_sharded(device):
     """Phase 16, the sixth main path, under the launch counters: the sharded
     fit on one card, a row group of one rank over NCCL (a file:// rendezvous
     under a temporary directory; one card holds one NCCL rank):
-    mvtv_sharded(folds=1, n_lambda=5) at 2048^2 (bench.py's data, n = 2^22),
+    mvtv_sharded(folds=1, n_lambda=3) at 2048^2 (bench.py's data, n = 2^22),
     its objective at the chosen lambda no worse than the exact-f32 route's
     cold solve from the same start by LARGE_GAP; mvtv_sharded(folds=2,
     n_lambda=3) at 1024^2 (n = 2^20), its chosen index in the tie set of
-    the single-card mvtv(folds=2, vmap_folds=False) on the same grid.  Then the two repaired routes: the
+    the single-card mvtv(folds=2, vmap_folds=False) on the same grid
+    (the 2048^2 fit on the default x-update, the spectral CG across ranks,
+    the 1024^2 one on the exact arm, xla_packed=False); the same at 512^2
+    (folds=2, n_lambda=2) on the default arm; the
+    C7 fits (shard_c7_fits: 16^4 and the reduced block set at 2048^2, the
+    lattices the shard route refused before, on plain stages; shard_p4_grid:
+    16^4 on the grid from lambda_max beside its two witnesses); and the
+    shard route's three x-update arms at 2048^2 (shard_arms: ms, CG steps,
+    launches, idle share), under the counters; then xla_packed=False
+    against the exact route and the default arm against the exact arm
+    (check_shard_arms) and the one-rank spectral x-update against the
+    single card's (check_shard_xupdate).  Then the two repaired routes: the
     C1 fit mvtv_one at 16384 x 256 (no folded halves: B8 and the plain PCG
     with B10) and a 16^4 fit (p = 4, no kernel), each against the exact-f32
     route (one-sided LARGE_GAP).  Returns the launch counts."""
+    import dataclasses
     import tempfile
 
     import torch
@@ -3235,13 +3306,15 @@ def phase_sharded(device):
     from multivartv_tpu_torch.ops import kernels as K
     from multivartv_tpu_torch.parallel import distributed
     from multivartv_tpu_torch.parallel import fit as pfit
+    from multivartv_tpu_torch.parallel.sharding import make_device_mesh
     from multivartv_tpu_torch.solver import admm
 
     log("phase 16: the sharded path on one card (a row group of one NCCL rank), counters reset")
-    (mA, nA), (mB, nB) = SHARD_FIT1, SHARD_FIT2
-    lA, lB = (f"mvtv_sharded {m[0]}x{m[1]}" for m in (mA, mB))
+    (mA, nA), (mB, nB), (mC, nC) = SHARD_FIT1, SHARD_FIT2, SHARD_FIT3
+    lA, lB, lC = (f"mvtv_sharded {m[0]}x{m[1]}" for m in (mA, mB, mC))
     x2, y2 = bench_data(nA)
     x1, y1 = bench_data(nB)
+    x5, y5 = bench_data(nC)
     with tempfile.TemporaryDirectory() as tmp:
         distributed.init_distributed(f"file://{tmp}/store", world_size=1, rank=0, device=device)
         try:
@@ -3253,32 +3326,56 @@ def phase_sharded(device):
             K.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            m2048 = pfit.mvtv_sharded(x2, y2, m=mA, folds=1, n_lambda=5, device=device)
+            m2048 = pfit.mvtv_sharded(x2, y2, m=mA, folds=1, n_lambda=SHARD_FIT1_LAMBDAS,
+                                      device=device)
             torch.cuda.synchronize()
             s2048 = time.perf_counter() - t0
             used = dict(K.launch_counts)
             t0 = time.perf_counter()
             m1024 = pfit.mvtv_sharded(x1, y1, m=mB, folds=2, n_lambda=SHARD_FIT2_LAMBDAS,
+                                      solver_config=SolverConfig(xla_packed=False),
                                       device=device)
             torch.cuda.synchronize()
             s1024 = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            m512 = pfit.mvtv_sharded(x5, y5, m=mC, folds=2, n_lambda=SHARD_FIT3_LAMBDAS,
+                                     solver_config=SolverConfig(max_iters=SHARD_FIT3_CAP),
+                                     device=device)
+            torch.cuda.synchronize()
+            s512 = time.perf_counter() - t0
+            c7 = shard_c7_fits(x2, y2, mA, device)
+            p4_grid = shard_p4_grid(device)
+            group = make_device_mesh()
+            arms, (ops_s, pr_s, scfg, spec_s, warm) = shard_arms(
+                f"{lA} shard route", x2, y2, mA, 0.05, device, group, SHARD)
             launches = dict(K.launch_counts)
+            check_shard_arms(lA, ops_s, pr_s, scfg, spec_s, warm, y2, 0.05, arms)
+            # A group of one's slab is the lattice: its operators without
+            # the slab are the single card's set-up, warm from the arms.
+            check_shard_xupdate(f"{mA[0]}x{mA[1]}", dict(
+                ops=dataclasses.replace(ops_s, slab=None), problem=pr_s, s=warm), group)
+            del ops_s, pr_s, warm, arms
         finally:
             dist.destroy_process_group()
     shard_used = {k: launches[k] for k in K.KERNELS if launches[k]}
-    log(f"  {lA} folds=1 n_lambda=5: {s2048:.2f} s [{GPU_LINE}], chosen index "
+    log(f"  {lA} folds=1 n_lambda={SHARD_FIT1_LAMBDAS}: {s2048:.2f} s [{GPU_LINE}], chosen index "
         f"{m2048.lambda_minmse_ind}, iterations per lambda "
         f"{[mm['iters'] for mm in m2048.models]}, launches "
         f"{ {k: v for k, v in used.items() if v} }")
-    log(f"  {lB} folds=2 n_lambda={SHARD_FIT2_LAMBDAS}: {s1024:.2f} s [{GPU_LINE}], chosen index "
+    log(f"  {lB} folds=2 n_lambda={SHARD_FIT2_LAMBDAS} (xla_packed=False): {s1024:.2f} s "
+        f"[{GPU_LINE}], chosen index "
         f"{m1024.lambda_minmse_ind}, CV curve {[float(f'{v:.8g}') for v in m1024.cv_mses]}")
+    log(f"  {lC} folds=2 n_lambda={SHARD_FIT3_LAMBDAS} (the default arm, cap {SHARD_FIT3_CAP}): "
+        f"{s512:.2f} s [{GPU_LINE}], chosen index {m512.lambda_minmse_ind}, iterations per "
+        f"lambda {[mm['iters'] for mm in m512.models]}, CV curve "
+        f"{[float(f'{v:.8g}') for v in m512.cv_mses]}")
     log(f"  sharded-path launch counts: {shard_used}")
     for k in SHARD:
         check(launches[k] > 0, f"the sharded path launched {k} ({launches[k]} times)")
     check(launches["rhs_tiled_2d_shard"] == 0, "the sharded path rides the dta/dtu carries: "
           "rhs_tiled_2d_shard launched 0 times, as B11 on the tiled route")
 
-    for label, model in ((lA, m2048), (lB, m1024)):
+    for label, model in ((lA, m2048), (lB, m1024), (lC, m512)):
         check(bool(np.all(np.isfinite(model.theta_lattice))), f"{label}: theta finite")
     check_lambda_max64(lA, float(m2048.lambdas[0]), x2, y2, m2048.mesh_spec)
     # The reference: the exact-f32 route's cold solve at the chosen lambda
@@ -3299,19 +3396,25 @@ def phase_sharded(device):
         f"({time.perf_counter() - t0:.2f} s)")
     check(gap <= LARGE_GAP, f"{lA}: objective at the chosen lambda (shard - "
           f"exact) / |exact| {gap:+.3e} <= {LARGE_GAP:g}")
+    check_c7_fits(c7, x2, y2, mA, device)
+    check_p4_grid(p4_grid, device)
 
-    t0 = time.perf_counter()
-    single = mvtv(x1, y1, m=mB, lambdas=m1024.lambdas, folds=2, device=device,
-                  cv_config=CVConfig(folds=2, vmap_folds=False))
-    torch.cuda.synchronize()
-    cv = np.asarray(single.cv_mses, np.float64)
-    ties = np.nonzero(cv <= cv.min() * (1 + MVTV_TIE))[0].tolist()
-    log(f"  single-card mvtv {mB[0]}x{mB[1]} folds=2 (vmap_folds=False), same grid: "
-        f"{time.perf_counter() - t0:.2f} s, chosen index {single.lambda_minmse_ind}, tie set "
-        f"{ties}, CV curve {[float(f'{v:.8g}') for v in single.cv_mses]}")
-    check(m1024.lambda_minmse_ind in ties, f"{lB} folds=2: chosen index "
-          f"{m1024.lambda_minmse_ind} in the single-card fit's tie set {ties} (CV MSE within "
-          f"{MVTV_TIE:g} of its minimum)")
+    for label, model, x, y, m, cap in ((lB, m1024, x1, y1, mB, None),
+                                       (lC, m512, x5, y5, mC, SHARD_FIT3_CAP)):
+        t0 = time.perf_counter()
+        cfg = SolverConfig() if cap is None else SolverConfig(max_iters=cap)
+        single = mvtv(x, y, m=m, lambdas=model.lambdas, folds=2, device=device,
+                      solver_config=cfg, cv_config=CVConfig(folds=2, vmap_folds=False))
+        torch.cuda.synchronize()
+        cv = np.asarray(single.cv_mses, np.float64)
+        ties = np.nonzero(cv <= cv.min() * (1 + MVTV_TIE))[0].tolist()
+        log(f"  single-card mvtv {m[0]}x{m[1]} folds=2 (vmap_folds=False, cap {cfg.max_iters}), "
+            f"same grid: {time.perf_counter() - t0:.2f} s, chosen index "
+            f"{single.lambda_minmse_ind}, tie set {ties}, CV curve "
+            f"{[float(f'{v:.8g}') for v in single.cv_mses]}")
+        check(model.lambda_minmse_ind in ties, f"{label} folds=2: chosen index "
+              f"{model.lambda_minmse_ind} in the single-card fit's tie set {ties} (CV MSE "
+              f"within {MVTV_TIE:g} of its minimum)")
 
     log("phase 16: the repaired routes (C1: no folded halves above 8192 per axis; C2: p = 4)")
     for label, m, make in REPAIRED:
@@ -3334,6 +3437,203 @@ def phase_sharded(device):
                   and used.get("gram_matvec_tiled_2d", 0) > 0,
                   f"{label}: B8 and B10 (the plain PCG's matvec) launched")
     return launches
+
+
+def shard_c7_fits(x2, y2, m2, device) -> dict:
+    """Phase 16's C7 fits on the row group of one (see SHARD_P4): {label:
+    (model, seconds, launches, x, y, m, config)}."""
+    import torch
+    from multivartv_tpu_torch import SolverConfig
+    from multivartv_tpu_torch.ops import kernels as K
+    from multivartv_tpu_torch.parallel import fit as pfit
+
+    m4, n4, lams4 = SHARD_P4
+    x4, y4 = quad_data(n4)
+    runs = (("16^4 n=2^18 (C7, p = 4)", x4, y4, m4, dict(lambdas=lams4), SolverConfig()),
+            (f"{m2[0]}x{m2[1]} reduced block set (C7)", x2, y2, m2,
+             dict(n_lambda=SHARD_REDUCED_LAMBDAS),
+             SolverConfig(include_full_mixed=False, max_iters=SHARD_REDUCED_CAP)))
+    out = {}
+    for label, x, y, m, grid, cfg in runs:
+        before = dict(K.launch_counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = pfit.mvtv_sharded(x, y, m=m, folds=1, solver_config=cfg, device=device, **grid)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        used = {k: K.launch_counts[k] - before[k] for k in K.KERNELS
+                if K.launch_counts[k] != before[k]}
+        log(f"  mvtv_sharded {label} folds=1 lambdas {[float(f'{v:.6g}') for v in model.lambdas]} "
+            f"(cap {cfg.max_iters}): {seconds:.2f} s [{GPU_LINE}], chosen index "
+            f"{model.lambda_minmse_ind}, iterations per lambda "
+            f"{[mm['iters'] for mm in model.models]}, launches {used}")
+        out[label] = (model, seconds, used, x, y, m, cfg)
+    return out
+
+
+def shard_p4_grid(device) -> dict:
+    """Phase 16's 16^4 fit on the grid from lambda_max (see SHARD_P4_GRID):
+    {name: (model, seconds)} for the shard route's default arm ("shard"),
+    the single card's mvtv ("single") and the shard route's exact arm
+    ("exact"), each on the same grid and cap."""
+    import torch
+    from multivartv_tpu_torch import SolverConfig, mvtv
+    from multivartv_tpu_torch.parallel import fit as pfit
+
+    m4, n4, _ = SHARD_P4
+    x4, y4 = quad_data(n4)
+    cfg = SolverConfig(max_iters=SHARD_P4_CAP)
+    fits = {"shard": lambda: pfit.mvtv_sharded(x4, y4, m=m4, folds=1, n_lambda=SHARD_P4_GRID,
+                                               solver_config=cfg, device=device),
+            "single": lambda: mvtv(x4, y4, m=m4, folds=1, n_lambda=SHARD_P4_GRID,
+                                   solver_config=cfg, device=device),
+            "exact": lambda: pfit.mvtv_sharded(
+                x4, y4, m=m4, folds=1, n_lambda=SHARD_P4_GRID, device=device,
+                solver_config=SolverConfig(max_iters=SHARD_P4_CAP, xla_packed=False))}
+    out = {}
+    for name, run in fits.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = run()
+        torch.cuda.synchronize()
+        out[name] = (model, time.perf_counter() - t0)
+    return out
+
+
+def check_p4_grid(grid, device):
+    """shard_p4_grid's fits: one grid on all three; at the chosen lambda (the
+    single card's too) the default arm's objective no worse than the single
+    card's spectralN route's by SHARD_P4_STOP_GAP (near lambda_max both stop
+    at the cap mid-way: printed), the exact arm's no worse than the exact
+    route's cold solve there (rho0 = lambda_0 / 5, uncapped) by LARGE_GAP;
+    the default arm's gap to the cold solve printed."""
+    import torch
+    from multivartv_tpu_torch import SolverConfig
+    from multivartv_tpu_torch.api import _fresh_solve, _setup
+    from multivartv_tpu_torch.config import DEFAULT_MESH
+
+    m4, n4, _ = SHARD_P4
+    x4, y4 = quad_data(n4)
+    label = f"16^4 n=2^18 (C7, p = 4) on the {SHARD_P4_GRID}-lambda grid from lambda_max"
+    objs = {}
+    for name, (model, seconds) in grid.items():
+        objs[name] = [model_objective(model, i) for i in range(len(model.lambdas))]
+        log(f"  {label}, {name} (cap {SHARD_P4_CAP}): lambdas "
+            f"{[float(f'{v:.6g}') for v in model.lambdas]}, iterations per lambda "
+            f"{[mm['iters'] for mm in model.models]}, chosen index {model.lambda_minmse_ind}, "
+            f"objectives {[f'{v:.9e}' for v in objs[name]]}, {seconds:.2f} s [{GPU_LINE}]")
+        check(bool(np.all(np.isfinite(model.theta_lattice))), f"{label}, {name}: theta finite")
+    shard, exact = grid["shard"][0], grid["exact"][0]
+    check(all(np.allclose(grid[k][0].lambdas, shard.lambdas, rtol=1e-6, atol=0)
+              for k in grid), f"{label}: one grid on the three fits")
+    gaps = [a / b - 1 for a, b in zip(objs["shard"], objs["single"])]
+    best = shard.lambda_minmse_ind
+    log(f"  {label}: the default arm's objective / the single card's - 1 per lambda "
+        f"{[f'{g:+.2e}' for g in gaps]} (at the cap near lambda_max both stop mid-way)")
+    check(best == grid["single"][0].lambda_minmse_ind and gaps[best] <= SHARD_P4_STOP_GAP,
+          f"{label}: the shard route's default arm against the single card's spectralN route "
+          f"at the chosen lambda (index {best} on both): {gaps[best]:+.3e} <= "
+          f"{SHARD_P4_STOP_GAP:g}")
+    cfg = SolverConfig(use_kernels=False)
+    _, _, spec, _, _, ops, problem = _setup(x4, y4, m4, None, cfg, DEFAULT_MESH, device)
+    lams = torch.as_tensor(exact.lambdas, device=device)
+    best = exact.lambda_minmse_ind
+    theta, fitted = _fresh_solve(ops, problem, lams[best], lams[0] / 5.0, cfg)
+    ref = objective64({"theta_lattice": theta.cpu().numpy(), "fitted": fitted.cpu().numpy(),
+                       "y": y4, "mesh_spec": spec, "lambda": float(lams[best])})
+    gap = objs["exact"][best] / ref - 1
+    log(f"  {label}: at the chosen lambda {float(lams[best]):.6g} the exact route's cold solve "
+        f"{ref:.9e}; the default arm (shard - exact) / |exact| "
+        f"{objs['shard'][best] / ref - 1:+.3e} and the single card's "
+        f"{objs['single'][best] / ref - 1:+.3e}, printed: the spectral CG's stop (PERF.md "
+        f"section 7)")
+    check(gap <= LARGE_GAP, f"{label}: the shard route's exact arm at the chosen lambda (shard "
+          f"- exact) / |exact| {gap:+.3e} <= {LARGE_GAP:g}")
+    del ops, problem, theta, fitted
+
+
+def check_c7_fits(c7, x2, y2, m2, device):
+    """Phase 16's C7 fits against the single card: each model's objective at
+    its chosen lambda no worse, by LARGE_GAP, than a single-card cold solve
+    there from the same start (rho0 = lambda_0 / 5): the exact-f32 route's
+    at 16^4, the spectral2 route's (the same algorithm, the same cap) for
+    the reduced block set; no slab kernel launched (their plain stages)."""
+    import torch
+    from multivartv_tpu_torch import SolverConfig
+    from multivartv_tpu_torch.api import _fresh_solve, _setup
+    from multivartv_tpu_torch.config import DEFAULT_MESH
+    from multivartv_tpu_torch.solver import admm
+
+    for label, (model, _, used, x, y, m, cfg) in c7.items():
+        full = cfg.include_full_mixed
+        ref_cfg = (SolverConfig(use_kernels=False) if full else cfg)
+        _, _, spec, _, _, ops, problem = _setup(x, y, m, None, ref_cfg, DEFAULT_MESH, device)
+        route = admm.solve_route(ops, ref_cfg)
+        grid = torch.as_tensor(model.lambdas, device=device)
+        best = model.lambda_minmse_ind
+        theta, fitted = _fresh_solve(ops, problem, grid[best], grid[0] / 5.0, ref_cfg)
+        lam = float(grid[best])
+        ref = objective64({"theta_lattice": theta.cpu().numpy(), "fitted": fitted.cpu().numpy(),
+                           "y": y, "mesh_spec": spec, "lambda": lam}, full)
+        obj = objective64({"theta_lattice": model.theta_lattice, "fitted": model.fitted,
+                           "y": model.y, "mesh_spec": model.mesh_spec, "lambda": lam}, full)
+        gap = (obj - ref) / abs(ref)
+        log(f"  mvtv_sharded {label} at the chosen lambda {lam:.6g}: objective {obj:.9e} vs the "
+            f"single card's {route or 'exact'} route's cold solve {ref:.9e}")
+        check(gap <= LARGE_GAP, f"mvtv_sharded {label}: objective at the chosen lambda (shard - "
+              f"{route or 'exact'}) / |{route or 'exact'}| {gap:+.3e} <= {LARGE_GAP:g}")
+        slab_kernels = [k for k in SHARD + SHARD3 if used.get(k)]
+        check(not slab_kernels and bool(np.all(np.isfinite(model.theta_lattice))),
+              f"mvtv_sharded {label}: finite, no slab kernel launched ({slab_kernels})")
+        del ops, problem, theta, fitted
+
+
+def check_shard_arms(label, ops, pr, scfg, spec, warm, y, lam_v, arms):
+    """After shard_arms: xla_packed=False against the exact-f32 route after
+    the same iterations from the same warm state (ARMS_FIXED_GAP, two-sided:
+    the same algorithm, sums in other orders); then the default arm and
+    xla_packed=False each solved from the warm state to Boyd's test or
+    ARMS_CAP, the default's objective no worse than the exact arm's by
+    LARGE_GAP (tests/test_pad_single.py:118, one-sided)."""
+    import dataclasses
+
+    import torch
+    from multivartv_tpu_torch import SolverConfig
+    from multivartv_tpu_torch.ops import interp
+    from multivartv_tpu_torch.solver import admm
+
+    lam = torch.tensor(lam_v, dtype=torch.float32, device=pr.oty.device)
+
+    def objective(state):
+        fitted = interp.gather_fitted(state.theta, pr.flat_idx)
+        return objective64({"theta_lattice": state.theta.cpu().numpy(),
+                            "fitted": fitted.cpu().numpy(), "y": y, "mesh_spec": spec,
+                            "lambda": lam_v})
+
+    # The exact route on the whole lattice: a group of one's slab is the
+    # lattice, so its operators are the single card's set-up.
+    exact = admm.admm_fixed_iterations(dataclasses.replace(ops, slab=None), pr, lam, warm,
+                                       SolverConfig(use_kernels=False), SHARD_ARM_ITERS)
+    gap = objective(arms["xla_packed=False"][2]) / objective(exact) - 1
+    check(abs(gap) <= ARMS_FIXED_GAP, f"{label} shard route xla_packed=False against the "
+          f"exact route after {SHARD_ARM_ITERS} iterations: {gap:+.3e}, |.| <= "
+          f"{ARMS_FIXED_GAP:g}")
+    del exact
+    objs = {}
+    for name in ("default", "xla_packed=False"):
+        cfg = dataclasses.replace(scfg, max_iters=ARMS_CAP, **ARMS[name])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = admm.admm_solve(ops, pr, lam, warm, cfg)
+        torch.cuda.synchronize()
+        objs[name] = objective(out)
+        log(f"  {label} shard route {name} solved from the warm state (cap {ARMS_CAP}): "
+            f"{out.counter} iterations, {out.cg_iters - warm.cg_iters} CG steps, converged "
+            f"{admm.solver_diagnostics(out)['converged']}, {time.perf_counter() - t0:.2f} s, "
+            f"objective {objs[name]:.9e} [{GPU_LINE}]")
+    gap = objs["default"] / objs["xla_packed=False"] - 1
+    check(gap <= LARGE_GAP, f"{label} shard route: the default arm's objective against the exact "
+          f"arm's (cap {ARMS_CAP}): {gap:+.3e} <= {LARGE_GAP:g}")
 
 
 def phase_timing_shard(device):
@@ -3593,11 +3893,12 @@ def check_t1_folds(label, seen, folds: int, n_lambda: int) -> None:
 # on the card), one-sided at LARGE_GAP; mvtv(folds=5, n_lambda=20) at N = 1e5
 # against the JAX package's fit of the same data (FUSED_JAX), every solve of
 # both capped at FUSED_CAP iterations (at the default 3,000 the fit took
-# 244-319 s of the run's 1,200; the cap roughly halves its iterations).
+# 244-319 s of the run's 1,200; at 1,000, 120-168 s, 14 of 20 lambdas at
+# the cap; at 500 18 of 20, about half the iterations again).
 FUSED_ONE = 1 << 20
 FUSED_FRAC = 1e-4
 FUSED_CV = (100_000, 5, 20)
-FUSED_CAP = 1000
+FUSED_CAP = 500
 # The JAX package's mvtv on fused_lasso_data(100_000) with the port's fold
 # labels, run on the CPU (its cyclic-reduction x-update) by:
 #
@@ -3613,29 +3914,29 @@ FUSED_CAP = 1000
 #   # lambdas = model.lambdas, best = model.lambda_minmse_ind, cv_mses, per
 #   # lambda i the objective 0.5 ||y - fitted||^2 + lambda ||diff theta||_1 in
 #   # float64 of model.models[i] (at p = 1 D is the unscaled difference), and
-#   # its iterations; 356 s on the CPU.
+#   # its iterations; 341 s on the CPU.
 # Its lambda_max is float32 (1.66e-3 above the float64 value, which the
 # port computes: lam_max64 gives 124469.307), so the port's fit takes JAX's
 # grid (lambdas=) and is compared with it lambda for lambda.
 FUSED_JAX = dict(
     lambda_max=124676.25, best=19,
-    lambdas=[124676.25, 76781.5859375, 47285.859375, 29120.888671875,
-             17934.033203125, 11044.6552734375, 6801.83251953125, 4188.89306640625,
-             2579.722900390625, 1588.718017578125, 978.4088745117188, 602.551513671875,
-             371.08013916015625, 228.52908325195312, 140.7392578125, 86.67399597167969,
-             53.37803649902344, 32.872764587402344, 20.244638442993164, 12.467623710632324],
-    cv_mses=[0.09730749577283859, 0.10250020027160645, 0.1079883724451065, 0.11382334679365158,
-             0.11994338035583496, 0.12626825273036957, 0.132721409201622, 0.1392361968755722,
-             0.12519878149032593, 0.11576130241155624, 0.10970349609851837, 0.10421711206436157,
-             0.09934858977794647, 0.09583092480897903, 0.09352800995111465, 0.09199460595846176,
-             0.09108973294496536, 0.09059739112854004, 0.09037979692220688, 0.0902959331870079],
-    objectives=[574086.515582947, 334999.6642330846, 197140.4102291787, 117164.42853452876,
-                70764.54861340017, 43883.75752283781, 28347.864712614308, 19405.97244640399,
-                23971.79523457665, 16654.62030308334, 16367.226402321896, 13961.435040843353,
-                10072.508144931533, 8168.428984001304, 6808.125562209349, 5844.663753799064,
-                5352.401367394152, 4993.7901352208, 4798.418710177729, 4667.35214427016],
-    iters=[1000, 1000, 1000, 1000, 1000, 1000, 1000, 1000, 64, 643, 897, 1000, 1000, 1000,
-           1000, 1000, 1000, 1000, 910, 859])
+    lambdas=[124676.25, 76781.5859375, 47285.859375, 29120.888671875, 17934.033203125,
+             11044.6552734375, 6801.83251953125, 4188.89306640625, 2579.722900390625,
+             1588.718017578125, 978.4088745117188, 602.551513671875, 371.08013916015625,
+             228.52908325195312, 140.7392578125, 86.67399597167969, 53.37803649902344,
+             32.872764587402344, 20.244638442993164, 12.467623710632324],
+    cv_mses=[0.09463705867528915, 0.09730749577283859, 0.0998820960521698, 0.10250020027160645,
+             0.10519924014806747, 0.1079883724451065, 0.11086545139551163, 0.11382334679365158,
+             0.11526129394769669, 0.10457298904657364, 0.10009779781103134, 0.09795631468296051,
+             0.09596413373947144, 0.09403778612613678, 0.09268319606781006, 0.09179358929395676,
+             0.09120748937129974, 0.09086522459983826, 0.09065286070108414, 0.09053508192300797],
+    objectives=[593867.4529574986, 355398.10029229376, 214226.07748959918, 130170.04604679564,
+                80009.39327720829, 50055.68349009582, 32177.432676378165, 21523.739454779374,
+                19338.812475652914, 14844.98588808937, 12478.418426766704, 13069.591078896097,
+                12925.79132066836, 10934.604060068737, 8750.29743622522, 7132.771805731358,
+                6151.0443048903835, 5502.145879877965, 5095.89229031752, 4843.047257629148],
+    iters=[500, 500, 500, 500, 500, 500, 500, 500, 489, 500, 417, 500, 500, 500, 500, 500, 500,
+           500, 500, 500])
 # The 316^2 point-cloud fit (phase 20): bivariate_exp(1e5) on the default
 # mesh's lattice, every point moved by N(0, (0.1 h)^2), h the knot spacing,
 # so the mesh is no lattice; lambda as WORKLOADS' 316^2.
@@ -4108,9 +4409,8 @@ SHARD3 = ("dual_update_tiled_3d_shard", "gram_residual_tiled_3d_shard",
 # (folds 2) on CUBES' data, SHARD3_LAMBDAS lambdas each; at p = 1 the fused
 # lasso (m = N, mesh = sorted x) at N = 2^20 (folds 1) and N = 1e5 (folds
 # 2), 5 lambdas each.  Every solve of a fit and of the fit it is compared
-# with stops at the same cap (SHARD3_CAP, SHARD1_CAP): the shard route's
-# p = 3 x-update is the exact float32 PCG (about 100 ms an iteration at
-# 256^3), and uncapped the 256^3 path alone would take minutes.
+# with stops at the same cap (SHARD3_CAP, SHARD1_CAP): uncapped the 256^3
+# path alone would take minutes.
 SHARD3_FIT1, SHARD3_FIT2 = "256^3 n=2^22", "256x256x64 n=2^22"
 SHARD3_LAMBDAS = 3
 SHARD3_CAP = 60
@@ -4378,8 +4678,8 @@ def compare_partition(device, errs):
 
 
 def shard_inputs(x, y, m, mesh, device, group, **cfg):
-    """(operators, problem, config) of mvtv_sharded's solves on a row group:
-    the shard route's slab of the whole set-up."""
+    """(operators, problem, config, mesh spec) of mvtv_sharded's solves on a
+    row group: the shard route's slab of the whole set-up."""
     from multivartv_tpu_torch.api import _setup
     from multivartv_tpu_torch.config import DEFAULT_MESH, SolverConfig
     from multivartv_tpu_torch.parallel import fit as pfit
@@ -4391,7 +4691,104 @@ def shard_inputs(x, y, m, mesh, device, group, **cfg):
     ops = pfit.shard_operators(setup[5], slab)
     log(f"  {'x'.join(map(str, setup[2].m))}: the operators' fields that the cut drops hold "
         f"{dropped_bytes(setup[5], ops) / 2**20:.1f} MiB on the device")
-    return ops, shard_problem(setup[6], slab), scfg
+    return ops, shard_problem(setup[6], slab), scfg, setup[2]
+
+
+def shard_arms(label, x, y, m, lam_v, device, group, kernels):
+    """The shard route's three x-update arms (ARMS: the spectral CG across
+    ranks, xla_packed=False, spectral_cg=False) on a row group's slabs, each
+    SHARD_ARM_ITERS admm_fixed_iterations from one warm state (ARMS_WARM
+    default iterations from mvtv_sharded's start), under the caller's launch
+    counters: ms per iteration (CUDA events), CG steps per iteration, the
+    launches of kernels = (dual, residual, matvec) per run with their checks
+    (the dual kernel once an iteration; the residual kernel once an
+    iteration except under spectral_cg=False, which forms b and takes no
+    r0 from it; the matvec only off the spectral CG), the roofline model's
+    bound, and a SHARD_ARM_PROFILE-iteration run under the profiler (device
+    time by kernel group, idle share).  Returns ({arm: (ms, steps, state)},
+    (ops, problem, config, spec, warm))."""
+    import dataclasses
+
+    import torch
+    from multivartv_tpu_torch.ops import kernels as K
+    from multivartv_tpu_torch.solver import admm, xupdate
+
+    ops, pr, scfg, spec = shard_inputs(x, y, m, None, device, group)
+    lam = torch.tensor(lam_v, dtype=torch.float32, device=device)
+    warm = admm.admm_fixed_iterations(ops, pr, lam, admm.initial_state(ops, pr, lam / 5), scfg,
+                                      ARMS_WARM)
+    layout = xupdate.spectral_layout(ops)
+    dual, residual, matvec = kernels
+    out = {}
+    for name in ARMS:
+        cfg = dataclasses.replace(scfg, **ARMS[name])
+        held = {}
+
+        def run(n=SHARD_ARM_ITERS):
+            held["s"] = admm.admm_fixed_iterations(ops, pr, lam, warm, cfg, n)
+
+        before = dict(K.launch_counts)
+        ms = cuda_time_ms(run, 1, warmup=0) / SHARD_ARM_ITERS
+        used = {k: K.launch_counts[k] - before[k] for k in kernels}
+        state = held["s"]
+        steps = (state.cg_iters - warm.cg_iters) / SHARD_ARM_ITERS
+        x_update = {"default": "spectral", "xla_packed=False": "pcg",
+                    "spectral_cg=False": "natural"}[name]
+        rep = roofline().model_report(m, n_steps=max(1, round(steps)), layout=layout or "packed",
+                                      x_update=x_update, ranks=group.size)
+        log(f"  {label} {name}: {ms:.3f} ms per iteration (CUDA events, {SHARD_ARM_ITERS} "
+            f"iterations from the warm state), {steps:.2f} CG steps per iteration, launches "
+            f"{used}; model bound {1e3 / rep['model_bound_iters_per_s']:.3f} ms per iteration "
+            f"({rep['x_update']}, {rep['layout']}), collectives per CG step "
+            f"{rep['collectives_per_cg_step']} [{GPU_LINE}]")
+        profile_iterations(f"{label} {name}", lambda: run(SHARD_ARM_PROFILE), SHARD_ARM_PROFILE,
+                           ms)
+        check(used[dual] == SHARD_ARM_ITERS, f"{label} {name}: {dual} launched once per "
+              f"iteration ({used[dual]} in {SHARD_ARM_ITERS})")
+        want_r0 = 0 if name == "spectral_cg=False" else SHARD_ARM_ITERS
+        check(used[residual] == want_r0, f"{label} {name}: {residual} launched {want_r0} times "
+              f"({used[residual]})")
+        if name == "default":
+            check(used[matvec] == 0, f"{label} {name}: {matvec} not launched ({used[matvec]})")
+        else:
+            check(used[matvec] > SHARD_ARM_ITERS, f"{label} {name}: {matvec} launched more than "
+                  f"once per iteration ({used[matvec]} in {SHARD_ARM_ITERS})")
+        check(bool(torch.all(torch.isfinite(state.theta))), f"{label} {name}: theta finite")
+        out[name] = (ms, steps, state)
+    return out, (ops, pr, scfg, spec, warm)
+
+
+def check_shard_xupdate(label, I, group):
+    """The one-rank spectral x-update (the shard route's, on the slab of a
+    group of one) against the single card's tiled-route x-update on the
+    same warm state I (ops, problem, state s: shard_arms's or
+    cube_inputs's): within SHARD_XUPDATE_TOL of max|x - x0|, equal up to
+    the float32 sums' order."""
+    import torch
+    from multivartv_tpu_torch import SolverConfig
+    from multivartv_tpu_torch.parallel import fit as pfit
+    from multivartv_tpu_torch.parallel.sharding import RowSlab
+    from multivartv_tpu_torch.solver import xupdate
+
+    ops, pr, s = I["ops"], I["problem"], I["s"]
+    cfg = SolverConfig()
+    scfg = pfit._sharded_solver_config(cfg, group)
+    ops_s = pfit.shard_operators(ops, RowSlab(group, ops.m))
+    counts = pr.counts
+    cbar = torch.sum(counts) / ops.ntheta
+    parts = (pr.oty, s.dta, s.u_scale, s.dtu)
+    want, _ = xupdate._solve_tiled(ops, counts, cbar, None, s.rho, s.theta, cfg,
+                                   xupdate.counts_to_layout(ops, counts, cfg), parts)
+    got, steps = xupdate.solve_x(ops_s, counts, cbar, None, s.rho, s.theta, scfg, tiled=True,
+                                 counts_blocked=xupdate.counts_to_layout(ops_s, counts, scfg),
+                                 rhs_parts=parts)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max() / (want - s.theta).abs().max())
+    check(err <= SHARD_XUPDATE_TOL and steps == xupdate.n_fixed_steps(cfg),
+          f"{label}: the one-rank shard route's spectral x-update ({xupdate.spectral_layout(ops)}"
+          f", {steps} steps) against the single card's on the same warm state: max err "
+          f"{err:.3e} of max|x - x0| <= {SHARD_XUPDATE_TOL:g}")
+    del ops_s, got, want
 
 
 def tensor_bytes(x) -> int:
@@ -4442,7 +4839,7 @@ def phase_sharded3(device, errs):
     rank (as phase 16's): mvtv_sharded(folds=1, SHARD3_LAMBDAS lambdas) at
     256^3 through B12s and B13s (the whole-lattice B12 and B13 not
     launched), its objective at the chosen lambda no worse than the
-    exact-f32 route's cold solve from the same start by LARGE_GAP;
+    tiled3 route's cold solve from the same start by LARGE_GAP;
     mvtv_sharded(folds=2) at 256 x 256 x 64, its chosen index in the tie set
     (MVTV_TIE3, C3's for this lattice and data) of the single-card
     mvtv(folds=2, vmap_folds=False) on the same grid; mvtv_sharded on the
@@ -4452,15 +4849,22 @@ def phase_sharded3(device, errs):
     both through T1; every solve on both sides capped (SHARD3_CAP,
     SHARD1_CAP); each fit's peak device memory (max_memory_allocated,
     reset before it) and, at p = 3, the live tensors of the lattice's
-    shape at its first ADMM solve (after the cut; a group of one's slab is
-    the lattice).  Then, launches not counted, ms per iteration of the
+    shape and the eigenvalue sets' shares at its first ADMM solve (after
+    the cut; a group of one's slab is the lattice); the shard route's three
+    x-update arms at 256^3 (shard_arms).  The 256^3 fit runs the spectral
+    CG across ranks: its objective is held against the single-card tiled3
+    route's cold solve (the same algorithm; at the same cap it sits +2.8e-4
+    from the exact route's on an H100, PERF.md section 6).  Then, launches
+    not counted, ms per iteration of the
     shard route at 256^3 and 2^20 beside the single-card tiled3 and tridiag
     routes with the device's idle share (T1 once per iteration on the
     group of one), and B12s, B13s (fused, as the route calls it), the
     slab matvec and T1's segment mode beside their plain versions, B13s
     and the matvec first held against them at 256^3 (1e-5 x max(1, |ref|),
-    their largest absolute errors recorded in errs).  Returns (launches,
-    {kernel: (ms, plain_ms, m, bound kwargs)})."""
+    their largest absolute errors recorded in errs), and the one-rank
+    spectral x-update against the single card's on the same warm state
+    (check_shard_xupdate).  Returns (launches, {kernel: (ms, plain_ms, m,
+    bound kwargs)})."""
     import tempfile
     from contextlib import nullcontext
 
@@ -4511,11 +4915,12 @@ def phase_sharded3(device, errs):
                 log(f"  mvtv_sharded {label}: peak device memory {peak:.3f} GiB "
                     f"(max_memory_allocated, reset before the fit) [{GPU_LINE}]")
                 if seen:
-                    (n_t, nbytes), = seen
+                    (n_t, nbytes, shares), = seen
                     log(f"  mvtv_sharded {label}: {n_t} live tensors of the lattice's shape at "
                         f"its first ADMM solve, after the cut ({nbytes / 2**30:.3f} GiB in "
                         f"distinct storages; one rank's slab is the whole lattice; census "
-                        f"{t_census[0]:.2f} s, not in the fit's time)")
+                        f"{t_census[0]:.2f} s, not in the fit's time); the solve's eigenvalue "
+                        f"sets as shares of the whole lattice's {shares}")
                 used[label] = {k: K.launch_counts[k] - before[k] for k in K.KERNELS
                                if K.launch_counts[k] != before[k]}
                 mdl = models[label]
@@ -4524,11 +4929,16 @@ def phase_sharded3(device, errs):
                     f"{mdl.lambda_minmse_ind}, iterations per lambda "
                     f"{[mm['iters'] for mm in mdl.models]}, CV curve "
                     f"{[float(f'{v:.8g}') for v in mdl.cv_mses]}, launches {used[label]}")
+            log("phase 23: the shard route's x-update arms at 256^3")
+            (x, y), m = fits3[SHARD3_FIT1]
+            arms, (ops, pr, scfg, spec, warm) = shard_arms(
+                f"{SHARD3_FIT1} shard route", x, y, m, 0.05, device, group, SHARD3)
             launches = dict(K.launch_counts)
+            del ops, pr, warm, arms
 
             log("phase 23: ms per iteration, the shard route beside the single-card routes")
             (x, y), m = fits3[SHARD3_FIT1]
-            ops, pr, scfg = shard_inputs(x, y, m, None, device, group)
+            ops, pr, scfg, _ = shard_inputs(x, y, m, None, device, group)
             times["iter shard 256^3"] = time_iterations(f"{SHARD3_FIT1} sharded (one rank)", ops,
                                                         pr, 0.05, scfg, SHARD3_ITERS)
             del ops, pr
@@ -4538,7 +4948,7 @@ def phase_sharded3(device, errs):
             del ops, pr
             n1 = FUSED_ONE
             (x, y) = fits1[n1]
-            ops, pr, scfg = shard_inputs(x, y, (n1,), x[:, None], device, group)
+            ops, pr, scfg, _ = shard_inputs(x, y, (n1,), x[:, None], device, group)
             before = dict(K.launch_counts)
             times["iter shard 2^20"] = time_iterations("fused lasso N=2^20 sharded (one rank)",
                                                        ops, pr, 1.0, scfg, SHARD1_ITERS)
@@ -4592,12 +5002,12 @@ def phase_sharded3(device, errs):
         return model_objective(mdl), ref
 
     t0 = time.perf_counter()
-    obj, ref = cold(l3a, None, SolverConfig(use_kernels=False, max_iters=SHARD3_CAP))
+    obj, ref = cold(l3a, None, SolverConfig(max_iters=SHARD3_CAP))
     gap = (obj - ref) / abs(ref)
-    log(f"  mvtv_sharded {l3a} at the chosen lambda: objective {obj:.9e} vs the exact route's "
+    log(f"  mvtv_sharded {l3a} at the chosen lambda: objective {obj:.9e} vs the tiled3 route's "
         f"cold solve {ref:.9e} ({time.perf_counter() - t0:.2f} s)")
     check(gap <= LARGE_GAP, f"mvtv_sharded {l3a}: objective at the chosen lambda (shard - "
-          f"exact) / |exact| {gap:+.3e} <= {LARGE_GAP:g}")
+          f"tiled3: the spectral CG on both) / |tiled3| {gap:+.3e} <= {LARGE_GAP:g}")
 
     def ties_of(label, cfg, tie, mesh=None):
         mdl = models[label]
@@ -4635,6 +5045,7 @@ def phase_sharded3(device, errs):
 
     log("phase 23: B12s, B13s and T1's segment mode beside their plain versions")
     I = cube_inputs(SHARD3_FIT1, device)
+    check_shard_xupdate("256^3", I, group)
     ops, pr, s, m = I["ops"], I["problem"], I["s"], I["m"]
     sc, kappa = ops.scales, I["lam"] / s.rho
     tops, bots = plane_halos((s.theta, *s.u), 0, m[0])

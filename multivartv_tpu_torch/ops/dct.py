@@ -415,12 +415,13 @@ def blocked_spectrum(eigs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     return tuple(blocks)
 
 
-def dctn_blocked(blocks, halves) -> Tuple[torch.Tensor, ...]:
+def dctn_blocked(blocks, halves, dtype=None) -> Tuple[torch.Tensor, ...]:
     """Natural-layout blocks -> spectral-layout blocks (orthonormal
-    coefficients, even/odd frequencies per axis)."""
+    coefficients, even/odd frequencies per axis).  dtype: the products'
+    result type (None: the blocks')."""
     p = len(halves)
     cur = list(blocks)
-    dtype = blocks[0].dtype
+    dtype = blocks[0].dtype if dtype is None else dtype
     for j, (te, to) in enumerate(halves):
         md = te.dtype
         new = [None] * len(cur)
@@ -435,12 +436,12 @@ def dctn_blocked(blocks, halves) -> Tuple[torch.Tensor, ...]:
     return tuple(cur)
 
 
-def idctn_blocked(blocks, halves) -> Tuple[torch.Tensor, ...]:
+def idctn_blocked(blocks, halves, dtype=None) -> Tuple[torch.Tensor, ...]:
     """Spectral-layout blocks -> natural-layout blocks (inverse of
     dctn_blocked)."""
     p = len(halves)
     cur = list(blocks)
-    dtype = blocks[0].dtype
+    dtype = blocks[0].dtype if dtype is None else dtype
     for j, (te, to) in enumerate(halves):
         md = te.dtype
         new = [None] * len(cur)
@@ -548,15 +549,19 @@ def _groups(nblocks: int, stride: int):
     return [g for g in range(nblocks) if (g // stride) % 4 == 0]
 
 
-def dctn_quartered(blocks, quarters) -> Tuple[torch.Tensor, ...]:
+def dctn_quartered(blocks, quarters, dtype=None) -> Tuple[torch.Tensor, ...]:
     """M-layout natural blocks -> [EE, EO, OE, OO]-per-axis spectral blocks
-    (orthonormal coefficients)."""
+    (orthonormal coefficients).  dtype: the products' result type (None:
+    the blocks'; the weights promote bf16 blocks to float32 after the
+    first axis, the products keep this type)."""
     p = len(quarters)
     cur = list(blocks)
-    dtype = blocks[0].dtype
+    dtype = blocks[0].dtype if dtype is None else dtype
     for ax, (c2q, v4q, c2qf, c1, s1, alt, w) in enumerate(quarters):
         md = c2q.dtype
-        dshape = (c1.shape[0],) + (1,) * (p - 1)   # acts along the block's axis 0
+        # acts along the block's axis 0 (a block may have more axes than
+        # the transform: parallel/spectral.py transforms one axis at a time)
+        dshape = (c1.shape[0],) + (1,) * (cur[0].ndim - 1)
         c1b, s1b, altb = c1.reshape(dshape), s1.reshape(dshape), alt.reshape(dshape)
         stride = 4 ** (p - 1 - ax)
         new = [None] * len(cur)
@@ -576,15 +581,15 @@ def dctn_quartered(blocks, quarters) -> Tuple[torch.Tensor, ...]:
     return tuple(cur)
 
 
-def idctn_quartered(blocks, quarters) -> Tuple[torch.Tensor, ...]:
+def idctn_quartered(blocks, quarters, dtype=None) -> Tuple[torch.Tensor, ...]:
     """Inverse of dctn_quartered: spectral quartered blocks -> M-layout
     natural blocks."""
     p = len(quarters)
     cur = list(blocks)
-    dtype = blocks[0].dtype
+    dtype = blocks[0].dtype if dtype is None else dtype
     for ax, (c2q, v4q, c2qf, c1, s1, alt, w) in enumerate(quarters):
         md = c2q.dtype
-        dshape = (w[0].shape[0],) + (1,) * (p - 1)
+        dshape = (w[0].shape[0],) + (1,) * (cur[0].ndim - 1)
         wb = [wv.reshape(dshape) for wv in w]
         stride = 4 ** (p - 1 - ax)
         new = [None] * len(cur)

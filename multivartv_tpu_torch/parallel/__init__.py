@@ -1,4 +1,4 @@
-"""The sharded fit: a lattice (p = 1, 2 or 3) cut along axis 0 into slabs
+"""The sharded fit: a lattice (any p) cut along axis 0 into slabs
 over the ranks of a torch.distributed process group (NCCL on the card,
 gloo on the CPU), every collective written out.  Counterpart of
 ``multivartv_tpu/parallel``."""

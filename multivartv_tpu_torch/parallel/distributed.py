@@ -65,8 +65,8 @@ def init_distributed(init_method: Optional[str] = None, world_size: Optional[int
 
 def global_lattice_mesh(p: int, dp: int = 1):
     """(row group, axis names) over every rank of the default group: the
-    layout of parallel/fit.py::default_lattice_mesh (p = 1, 2 or 3; axis 0
-    cut, ("dp", "sx") at p = 1 and ("dp", "sx", "sy") above)."""
+    layout of parallel/fit.py::default_lattice_mesh (any p; axis 0 cut,
+    ("dp", "sx") at p = 1 and ("dp", "sx", "sy") above)."""
     from multivartv_tpu_torch.parallel.fit import default_lattice_mesh
     return default_lattice_mesh(p, dp=dp)
 

@@ -5,17 +5,21 @@ the whole product path (lambda_max, the lambda grid, k-fold CV, the full
 path, the refit; mbs_impl, solvers.cpp:305-376) with theta and every
 lattice-shaped operand of the solve cut along axis 0 into slabs, one per
 rank of a row group (parallel/sharding.py): row slabs at p = 2, plane
-slabs at p = 3, segments of the chain at p = 1.  The JAX package leaves
-every collective to the XLA SPMD partitioner; here the solver's shard
-route (solver/admm.py) writes them out: halo rows or planes around the
-slab kernels (B8s and B9s at p = 2, B12s and B13s at p = 3;
-parallel/tiled_shard.py), the halo knot of the plain p = 1 stages and the
-partition solve's gather of the segments' end values
-(solver/tridiag.py), sums over the group for every dot, norm and Boyd
-statistic, and the pencil transposes of the DCT preconditioner
-(parallel/halo.py).  p >= 4, the reduced block set, 2-D process grids,
-the fold axis dp and the spectral CG across ranks raise
-NotImplementedError (ROADMAP A11).
+slabs at p = 3 (and slabs of p - 1 dimensions above), segments of the
+chain at p = 1, with the full block set or the reduced one.  The JAX
+package leaves every collective to the XLA SPMD partitioner; here the
+solver's shard route (solver/admm.py) writes them out: halo rows or planes
+around the slab kernels (B8s and B9s at p = 2, B12s and B13s at p = 3 with
+the full block set; parallel/tiled_shard.py) or around the plain stages
+(every other lattice, the JAX package's XLA stages there), the halo knot of
+the plain p = 1 stages and the partition solve's gather of the segments'
+end values (solver/tridiag.py), sums over the group for every dot, norm
+and Boyd statistic, and the pencil transposes of the x-update's DCT
+transforms (parallel/halo.py): the spectral-correction CG across ranks
+(parallel/spectral.py) by default, as the JAX package runs it on a TPU,
+and the natural-domain bf16 PCG and the exact float32 PCG under
+SolverConfig(spectral_cg=False) and (xla_packed=False).  2-D process grids
+and the fold axis dp raise NotImplementedError (ROADMAP A11).
 
 Set-up is whole on every rank, and then dropped: each rank bins all the
 data, builds the global operators and takes lambda_max (float64) from the
@@ -51,12 +55,9 @@ from multivartv_tpu_torch.utils.logging import get_logger
 def default_lattice_mesh(p: int, dp: int = 1, group=None) -> Tuple[RowGroup, Tuple[str, ...]]:
     """(row group, axis names): every rank of the group (None: the default
     one) on the axis "sx" of a (dp, sx) mesh at p = 1 (the JAX package's
-    sequence-parallel layout) or a (dp, sx, sy) mesh with sy = 1 at p = 2
-    and 3.  The JAX package factors its devices over sx and sy; the port
-    cuts axis 0 only, and its fold axis dp is 1."""
-    if p not in (1, 2, 3):
-        raise NotImplementedError(f"the sharded fit cuts lattices of p = 1, 2 and 3; p = {p} "
-                                  "is not ported (ROADMAP A11)")
+    sequence-parallel layout) or a (dp, sx, sy) mesh with sy = 1 at p >= 2.
+    The JAX package factors its devices over sx and sy; the port cuts axis
+    0 only, and its fold axis dp is 1."""
     if dp != 1:
         raise NotImplementedError("the fold axis dp is not ported: the folds run one after "
                                   "another (ROADMAP A11)")
@@ -98,20 +99,34 @@ def _sharded_solver_config(cfg: SolverConfig, device_mesh: Optional[RowGroup] = 
 
 
 def shard_operators(ops: Operators, slab: RowSlab) -> Operators:
-    """The operators of one rank's slab: gram_eigs cut to its pencil (the
-    layout in which the DCT preconditioner divides; whole at p = 1, which
-    has no pencil), gram_diagonal to its slab, the dense DCT matrices
-    (per-axis) whole, and the spectral-correction CG's operand sets
-    dropped (the shard route runs the plain PCG, which reads none of
-    them).  At p = 1 the partition solve reads the scales only."""
+    """The operators of one rank's slab.  Lattice-sized operands are cut:
+    gram_eigs and the spectral CG's eigenvalue sets (packed, blocked,
+    quartered and their bf16 copies) to the rank's pencil (the layout in
+    which the x-update divides by them; parallel/spectral.py), gram_diagonal
+    to its slab; at p = 1, which has no pencil, gram_eigs stays whole.  The
+    per-axis transform operands (the dense DCT matrices, the folded halves
+    and the quartered operands, O(sum m_j^2)) stay whole on every rank, as
+    the JAX package replicates them (fit.py:139-200).  At p = 1 the
+    partition solve reads the scales only."""
     if tuple(ops.m) != tuple(slab.m):
         raise ValueError(f"operators of {ops.m} cut over a layout of {slab.m}")
+    from multivartv_tpu_torch.parallel import spectral
+    p = len(ops.m)
+
+    def pencil(blocks, div):
+        return None if blocks is None else tuple(spectral.pencil_cut(e, slab, div)
+                                                  for e in blocks)
+
     return dataclasses.replace(
-        ops, gram_eigs=ops.gram_eigs if len(ops.m) == 1 else slab.cols(ops.gram_eigs),
+        ops, gram_eigs=ops.gram_eigs if p == 1 else slab.cols(ops.gram_eigs),
         gram_diagonal=None if ops.gram_diagonal is None else slab.rows(ops.gram_diagonal),
-        dct_mats_lp=None, dct_halves=None, dct_halves_lp=None, gram_eigs_packed=None,
-        gram_eigs_blocked=None, gram_eigs_blocked_lp=None, dct_quarters_lp=None,
-        gram_eigs_quartered=None, gram_eigs_quartered_lp=None, padded=None, slab=slab)
+        dct_mats_lp=None,
+        gram_eigs_packed=None if ops.gram_eigs_packed is None else slab.cols(
+            ops.gram_eigs_packed),
+        gram_eigs_blocked=pencil(ops.gram_eigs_blocked, 2),
+        gram_eigs_blocked_lp=pencil(ops.gram_eigs_blocked_lp, 2),
+        gram_eigs_quartered=pencil(ops.gram_eigs_quartered, 4),
+        gram_eigs_quartered_lp=pencil(ops.gram_eigs_quartered_lp, 4), padded=None, slab=slab)
 
 
 def _broadcast(x: torch.Tensor, grp: RowGroup) -> torch.Tensor:
@@ -131,8 +146,9 @@ def mvtv_sharded(data, y, m=None, mesh=None, n_lambda: int = 100, ftrue=None, la
                  path_config: Optional[PathConfig] = None, cv_config: Optional[CVConfig] = None,
                  mesh_config: MeshConfig = DEFAULT_MESH, device="cuda"):
     """mvtv (api.mvtv's arguments and MVTVModel) with the lattice cut into
-    slabs along axis 0 over a row group (p = 1, 2 or 3); every rank calls
-    it with the same data and returns the same model (see the module doc).
+    slabs along axis 0 over a row group (any p, either block set); every
+    rank calls it with the same data and returns the same model (see the
+    module doc).
 
     device_mesh: a RowGroup (parallel.sharding.make_device_mesh); None:
         every rank of the default process group (parallel.distributed.
@@ -154,17 +170,12 @@ def mvtv_sharded(data, y, m=None, mesh=None, n_lambda: int = 100, ftrue=None, la
     if device_mesh is None:
         device_mesh, _ = default_lattice_mesh(len(spec.m))
     solver_config = _sharded_solver_config(solver_config, device_mesh, spatial_axes)
-    if not tiled_shard.shard_supported(spec.m, ops.binaries, solver_config.tiled_shard_key):
-        raise NotImplementedError(f"the sharded route takes p = 1, 2 or 3 with the full block "
-                                  f"set, at least one index of axes 0 and 1 (two knots at "
-                                  f"p = 1) per rank (got m = {spec.m}, {len(ops.binaries)} "
-                                  f"blocks, {device_mesh.size} ranks; ROADMAP A11)")
     slab = RowSlab(device_mesh, spec.m)
     grid, path_config = _lambda_grid(ops, problem, lambdas, path_config, verbose,
                                      share=lambda g: _broadcast(g, device_mesh))
     # From here on only this rank's slab of the operators and the problem
-    # is alive: rebinding drops the whole ones (and every spectral-CG
-    # layout, which shard_operators leaves out).
+    # is alive: rebinding drops the whole ones (shard_operators cuts every
+    # lattice-sized operand to the rank's slab or pencil).
     ops, problem = shard_operators(ops, slab), shard_problem(problem, slab)
     cut = LatticeCut(problem=lambda pr: shard_problem(pr, slab),
                      gather=lambda t: halo.gather_rows_to_host(t, slab))

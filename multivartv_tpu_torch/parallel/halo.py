@@ -15,17 +15,18 @@ sharded fit lives in this module, on ``torch.distributed``:
     every norm and the Boyd sums, so that each host decision (a loop
     predicate, rho adaptation, the NaN guard) reads the same value on every
     rank and no rank takes another branch;
-  * the pencil transposes ``rows_to_cols`` / ``cols_to_rows``
-    (``all_to_all_single``): the DCT preconditioner transforms axis 1 (and
-    axis 2 at p = 3) on the slabs and axis 0 on the pencils, slabs of axis
-    1 with axis 0 whole;
+  * the pencil transposes ``rows_to_cols`` / ``cols_to_rows`` and, for
+    several arrays in one call, ``to_pencils`` / ``to_slabs``
+    (``all_to_all_single``): the x-update's DCT transforms run along axes
+    1 .. p - 1 on the slabs and along axis 0 on the pencils, slabs of axis
+    1 with every other axis whole;
   * ``gather_rows`` (every rank gets the whole lattice), its host form
     ``gather_rows_to_host`` (the fit's thetas, one lambda at a time) and
     ``gather_fitted`` (every rank gets every sample's fitted value).
 
 A group of size 1 makes no call.  The stencils of the operator D on the
-slabs (``slab_apply_D``, ``slab_apply_Dt``; p = 1, 2 and 3) exchange one
-halo row, plane or knot.
+slabs (``slab_apply_D``, ``slab_apply_Dt``; any p and block set) exchange
+one halo row, plane or knot.
 
 ``sharded_admm_solve`` is the JAX package's explicit solver: p = 2, the
 full block set, Jacobi-preconditioned CG with every collective by hand,
@@ -155,37 +156,58 @@ def gather_rows_to_host(x: torch.Tensor, slab: RowSlab) -> torch.Tensor:
 
 
 def rows_to_cols(x: torch.Tensor, slab: RowSlab) -> torch.Tensor:
-    """(rows, m1[, m2]) slab -> (m0, cols[, m2]) pencil of the same
-    lattice (p >= 2)."""
-    grp = slab.group
-    if grp.size == 1:
+    """(rows, m1, ...) slab -> (m0, cols, ...) pencil of the same lattice
+    (p >= 2)."""
+    if slab.group.size == 1:
         return x
-    rows, cols = slab.row_counts, slab.col_counts
-    mine_r, mine_c = rows[grp.rank], cols[grp.rank]
-    rest = int(np.prod(slab.m[2:], dtype=np.int64))
-    send = torch.cat([blk.reshape(-1) for blk in x.split(list(cols), dim=1)])
-    out = torch.empty(slab.m[0] * mine_c * rest, dtype=x.dtype, device=x.device)
-    dist.all_to_all_single(out, send, output_split_sizes=[r * mine_c * rest for r in rows],
-                           input_split_sizes=[mine_r * c * rest for c in cols], group=grp.group)
-    return out.view(slab.pencil_shape)
+    return to_pencils([x], slab.group, slab.row_counts, slab.col_counts)[0]
 
 
 def cols_to_rows(x: torch.Tensor, slab: RowSlab) -> torch.Tensor:
-    """(m0, cols[, m2]) pencil -> (rows, m1[, m2]) slab of the same
-    lattice (p >= 2)."""
-    grp = slab.group
-    if grp.size == 1:
+    """(m0, cols, ...) pencil -> (rows, m1, ...) slab of the same lattice
+    (p >= 2)."""
+    if slab.group.size == 1:
         return x
-    rows, cols = slab.row_counts, slab.col_counts
-    mine_r, mine_c = rows[grp.rank], cols[grp.rank]
-    tail = tuple(slab.m[2:])
-    rest = int(np.prod(tail, dtype=np.int64))
-    out = torch.empty(mine_r * slab.m[1] * rest, dtype=x.dtype, device=x.device)
-    dist.all_to_all_single(out, x.contiguous().reshape(-1),
-                           output_split_sizes=[mine_r * c * rest for c in cols],
-                           input_split_sizes=[r * mine_c * rest for r in rows], group=grp.group)
-    return torch.cat([blk.view((mine_r, c) + tail) for blk, c in zip(out.split(
-        [mine_r * c * rest for c in cols]), cols)], dim=1)
+    return to_slabs([x], slab.group, slab.row_counts, slab.col_counts)[0]
+
+
+def to_pencils(xs: Sequence[torch.Tensor], grp: RowGroup, rows: Sequence[int],
+               cols: Sequence[int]) -> List[torch.Tensor]:
+    """Slabs -> pencils of several arrays of one shape in one all_to_all:
+    each x is this rank's (rows[rank], n1, ...) slab of an (sum(rows), n1,
+    ...) array, returned as its (sum(rows), cols[rank], ...) pencil; cols
+    cuts n1 (a part may be empty)."""
+    if grp.size == 1:
+        return list(xs)
+    me = grp.rank
+    tail = tuple(xs[0].shape[2:])
+    rest = int(np.prod(tail, dtype=np.int64)) * len(xs)
+    stack = torch.stack(list(xs), 1)                       # (rows, B, n1, ...)
+    send = torch.cat([blk.reshape(-1) for blk in stack.split(list(cols), dim=2)])
+    out = torch.empty(sum(rows) * cols[me] * rest, dtype=stack.dtype, device=stack.device)
+    dist.all_to_all_single(out, send, output_split_sizes=[r * cols[me] * rest for r in rows],
+                           input_split_sizes=[rows[me] * c * rest for c in cols],
+                           group=grp.group)
+    return list(out.view((sum(rows), len(xs), cols[me]) + tail).unbind(1))
+
+
+def to_slabs(xs: Sequence[torch.Tensor], grp: RowGroup, rows: Sequence[int],
+             cols: Sequence[int]) -> List[torch.Tensor]:
+    """Pencils -> slabs, the inverse of to_pencils."""
+    if grp.size == 1:
+        return list(xs)
+    me = grp.rank
+    tail = tuple(xs[0].shape[2:])
+    rest = int(np.prod(tail, dtype=np.int64)) * len(xs)
+    stack = torch.stack(list(xs), 1)                       # (m0, B, cols, ...)
+    out = torch.empty(rows[me] * sum(cols) * rest, dtype=stack.dtype, device=stack.device)
+    dist.all_to_all_single(out, stack.reshape(-1),
+                           output_split_sizes=[rows[me] * c * rest for c in cols],
+                           input_split_sizes=[r * cols[me] * rest for r in rows],
+                           group=grp.group)
+    parts = [blk.view((rows[me], len(xs), c) + tail)
+             for blk, c in zip(out.split([rows[me] * c * rest for c in cols]), cols)]
+    return list(torch.cat(parts, dim=2).unbind(1))
 
 
 def gather_fitted(theta: torch.Tensor, flat_idx: torch.Tensor, slab: RowSlab) -> torch.Tensor:
@@ -203,11 +225,13 @@ def gather_fitted(theta: torch.Tensor, flat_idx: torch.Tensor, slab: RowSlab) ->
 # D and D' on the slabs (the full block set)
 # ---------------------------------------------------------------------------
 
-def slab_apply_D(theta: torch.Tensor, slab: RowSlab, scales) -> Tuple[torch.Tensor, ...]:
+def slab_apply_D(theta: torch.Tensor, slab: RowSlab, scales,
+                 binaries=None) -> Tuple[torch.Tensor, ...]:
     """The blocks of D theta on this rank's slab (the row, plane or knot
-    above from the next rank)."""
-    if len(slab.m) != 2:
-        return _slab_apply_D(theta, slab, scales)
+    above from the next rank); binaries: the blocks in use (None: the full
+    set), with their scales."""
+    if len(slab.m) != 2 or (binaries is not None and len(binaries) != 3):
+        return _slab_apply_D(theta, slab, scales, binaries)
     top, bot = halo_pair(theta, slab.group)
     panel = K._slab_panel(theta, top, bot)
     mask0, mask1, _ = K._slab_masks(panel, slab.row_off, slab.m[0])
@@ -217,11 +241,11 @@ def slab_apply_D(theta: torch.Tensor, slab: RowSlab, scales) -> Tuple[torch.Tens
     return tuple(b[1:-1] for b in blocks)
 
 
-def slab_apply_Dt(blocks, slab: RowSlab, scales) -> torch.Tensor:
+def slab_apply_Dt(blocks, slab: RowSlab, scales, binaries=None) -> torch.Tensor:
     """D' of the blocks on this rank's slab (the blocks with an axis-0
     part: their row, plane or knot below from the previous rank)."""
-    if len(slab.m) != 2:
-        return _slab_apply_Dt(blocks, slab, scales)
+    if len(slab.m) != 2 or (binaries is not None and len(binaries) != 3):
+        return _slab_apply_Dt(blocks, slab, scales, binaries)
     b0, b1, b2 = blocks
     (t0, t2), _ = halo_rows(slab.group, [b0, b2])
     zero = torch.zeros_like(b1[:1])
@@ -229,22 +253,24 @@ def slab_apply_Dt(blocks, slab: RowSlab, scales) -> torch.Tensor:
                    scales)[1:]
 
 
-def _slab_apply_D(theta, slab: RowSlab, scales):
-    """slab_apply_D at p = 1 and 3: each block's forward chain on the
-    slab's panel (its planes -1 .. rows), the axis-0 mask on the global
+def _slab_apply_D(theta, slab: RowSlab, scales, binaries=None):
+    """slab_apply_D off the p = 2 full set: each block's forward chain on
+    the slab's panel (its planes -1 .. rows), the axis-0 mask on the global
     planes, as ops/diff.py::apply_D computes it on the whole lattice."""
-    binaries = diff_ops.fd_binaries(len(slab.m))
+    if binaries is None:
+        binaries = diff_ops.fd_binaries(len(slab.m))
     top, bot = halo_pair(theta, slab.group)
     panel = torch.cat([top, theta, bot])
     mask0 = K._global_mask0(panel, slab.row_off, slab.m[0])
     return tuple(s * K._panel_block(panel, b, mask0)[1:-1] for b, s in zip(binaries, scales))
 
 
-def _slab_apply_Dt(blocks, slab: RowSlab, scales):
-    """slab_apply_Dt at p = 1 and 3: each block's adjoint chain, the blocks
-    with an axis-0 part on their panel (the plane below from the previous
-    rank), added in fd_binaries order as apply_Dt adds them."""
-    binaries = diff_ops.fd_binaries(len(slab.m))
+def _slab_apply_Dt(blocks, slab: RowSlab, scales, binaries=None):
+    """slab_apply_Dt off the p = 2 full set: each block's adjoint chain,
+    the blocks with an axis-0 part on their panel (the plane below from the
+    previous rank), added in the blocks' order as apply_Dt adds them."""
+    if binaries is None:
+        binaries = diff_ops.fd_binaries(len(slab.m))
     down = [k for k, b in enumerate(binaries) if b[0]]
     tops, _ = halo_rows(slab.group, [blocks[k] for k in down])
     below = dict(zip(down, tops))

@@ -8,19 +8,20 @@ writes every collective out (parallel/halo.py).  Its one layout is the one
 in which the JAX package runs its shard kernels (parallel/fit.py,
 ``_sharded_solver_config``): a lattice cut along axis 0 into slabs, one per
 rank of a row group, the other axes whole on every rank.  At p = 2 the
-slabs are row slabs, at p = 3 plane slabs, at p = 1 segments of the chain
-(the JAX package's sequence-parallel regime, fit.py:52-72).
+slabs are row slabs, at p = 3 plane slabs (and slabs of p - 1 dimensions
+above), at p = 1 segments of the chain (the JAX package's sequence-parallel
+regime, fit.py:52-72).
 
   * ``RowGroup``: a torch.distributed process group (None: the default
     group) whose ranks each hold one row slab; the counterpart of a mesh
     with one lattice axis.  A group of size 1 needs no initialized process
     group and makes no collective call.
-  * ``RowSlab``: the layout of one lattice of dims m (p = 1, 2 or 3) over a
+  * ``RowSlab``: the layout of one lattice of dims m (any p >= 1) over a
     row group.  Axes 0 and 1 are split as evenly as ``np.array_split``
     splits them; a rank's slab is indices [row_off, row_off + rows) of
-    axis 0, every other axis whole.  At p >= 2 the DCT preconditioner's
-    axis-0 transform runs in the "pencil" layout, indices [col_off, col_off
-    + cols) of axis 1 with axis 0 (and axis 2) whole; p = 1 has no pencil.
+    axis 0, every other axis whole.  At p >= 2 the DCT transforms of axis 0
+    run in the "pencil" layout, indices [col_off, col_off + cols) of axis 1
+    with every other axis whole; p = 1 has no pencil.
   * ``shard_problem`` and ``shard_state`` cut lattice arrays (counts, O'y,
     theta, every alpha and u block, the adjoint carries) to this rank's
     slab; per-sample arrays (flat_idx, y, train_mask) and scalars stay whole
@@ -77,8 +78,8 @@ class RowSlab:
 
     def __post_init__(self):
         p, n = len(self.m), self.group.size
-        if p not in (1, 2, 3):
-            raise ValueError(f"the slab layout cuts lattices of p = 1, 2 or 3, got m = {self.m}")
+        if p < 1:
+            raise ValueError(f"the slab layout cuts lattices of p >= 1, got m = {self.m}")
         if p == 1 and self.m[0] < 2 * n:
             raise ValueError(f"a chain of {self.m[0]} knots has fewer than two for each of the "
                              f"{n} ranks of its row group")
@@ -107,11 +108,6 @@ class RowSlab:
     def shape(self) -> Tuple[int, ...]:
         """The local slab's shape."""
         return (self.row_counts[self.group.rank],) + tuple(self.m[1:])
-
-    @property
-    def pencil_shape(self) -> Tuple[int, ...]:
-        """The local pencil's shape (p >= 2)."""
-        return (self.m[0], self.col_counts[self.group.rank]) + tuple(self.m[2:])
 
     def rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's slab of a global lattice array (a contiguous copy);

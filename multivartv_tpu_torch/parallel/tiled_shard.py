@@ -12,11 +12,15 @@ Boyd partial sums over the row group (the JAX package's ``psum``).  A
 group of size 1 makes no call, and the kernels then compute their
 whole-lattice twins' function on the whole lattice.
 
-Scope: the full block set, the lattice cut along axis 0 only; p = 2 as the
-JAX package's shard kernels, p = 3 where the JAX package leaves the
-stages to its SPMD partitioner (no Pallas kernel), and p = 1, whose
-stages are plain and whose x-update is the partition solve
-(solver/tridiag.py; no slab kernel here).  The row group rides in
+Scope (``shard_supported``, the JAX package's ``_tiled_shard_active``):
+the full block set, the lattice cut along axis 0 only; p = 2 as the JAX
+package's shard kernels, p = 3 where the JAX package leaves the stages to
+its SPMD partitioner (no Pallas kernel), and p = 1, whose stages are plain
+and whose x-update is the partition solve (solver/tridiag.py; no slab
+kernel here).  It picks the kernels, not the route: every other lattice
+(p >= 4, the reduced block set) runs the shard route on the plain stages
+of parallel/halo.py, as the JAX package runs its XLA stages there.  The
+row group rides in
 ``SolverConfig.tiled_shard_key``
 as a small integer key into a registry (``register_shard_mesh``), as the
 JAX package keeps its mesh out of the frozen config; the solver's
@@ -54,17 +58,19 @@ def get_shard_ctx(key: int) -> Tuple[RowGroup, str]:
 
 
 def shard_supported(m, binaries, key: Optional[int]) -> bool:
-    """The sharded route applies: a registered key, p in (1, 2, 3), the
-    full block set, and at least one index of axes 0 and 1 per rank (two
-    knots per rank at p = 1; the JAX package's further alignment rules are
-    the TPU's)."""
+    """The shard route's kernels apply: a registered key, and at p = 2 and
+    3 the slab kernels (B8s/B9s, B12s/B13s and the dta/dtu carries) with
+    the full block set and at least one index of axes 0 and 1 per rank, at
+    p = 1 T1's partition solve with two knots per rank (the JAX package's
+    further alignment rules are the TPU's).  Lattices it declines run the
+    shard route on plain stages (module doc)."""
     if key is None or key not in _REGISTRY:
         return False
     p, size = len(m), _REGISTRY[key].size
-    if p not in (1, 2, 3) or len(binaries) != 2 ** p - 1:
-        return False
     if p == 1:
         return int(m[0]) >= 2 * size
+    if p not in (2, 3) or len(binaries) != 2 ** p - 1:
+        return False
     return min(int(v) for v in m[:2]) >= size
 
 

@@ -82,15 +82,21 @@ tests walk the card's route; only each kernel wrapper looks at the device):
   * shard route: operators cut to slabs along axis 0 over a row group
     (parallel/fit.py::shard_operators, ``SolverConfig.tiled_shard_key``;
     the JAX package's ``_tiled_shard_active``, admm.py:158-171, at p = 2,
-    its SPMD route at p = 1 and 3): one iteration at a time.  At p = 2 and
-    3 the sharded x-update (xupdate.py, B9s's or B13s's r0), then
-    ``dual_update_tiled_2d_shard`` (B8s) or ``dual_update_tiled_3d_shard``
-    (B12s) with the dta/dtu carries and the alpha stores skipped, alpha
-    refreshed after the loop, as on the tiled routes; at p = 1 a plain rhs
-    and dual stage with the halo knot around the partition solve
+    its SPMD route elsewhere), any p and either block set: one iteration
+    at a time.  At p = 2 and 3 with the full block set (the slab kernels,
+    parallel/tiled_shard.py::shard_supported) the sharded x-update
+    (xupdate.py: the spectral CG across ranks, or the arm SolverConfig
+    picks; B9s's or B13s's r0), then ``dual_update_tiled_2d_shard`` (B8s)
+    or ``dual_update_tiled_3d_shard`` (B12s) with the dta/dtu carries and
+    the alpha stores skipped, alpha refreshed after the loop, as on the
+    tiled routes; at p >= 4 and with the reduced block set a plain rhs and
+    dual stage on the slabs (halo rows or planes; the Boyd sums in one call)
+    around the same x-update arms, r0 in plain PyTorch; at p = 1 the plain
+    stages with the halo knot around the partition solve
     (solver/tridiag.py::partition_xupdate, T1 on each segment), as the
     "tridiag" route's.  Every lattice sum runs over the row group; no
-    padding, no escape (the x-updates are float32).
+    padding; the bf16 escape as on the kernel routes (its exact tail the
+    shard route's xla_packed=False arm).
 
 Batched solves (``admm_solve_batched``: the CV folds and lambda sweeps) run
 B problems at once through ``admm_iters_2d_batched`` (B5) on the kernel
@@ -286,12 +292,11 @@ def solve_route(ops: Operators, cfg: SolverConfig) -> Optional[str]:
     (the exact-f32 route), "tridiag" (p = 1 under dct_pcg: T1), "whole",
     "tiled", "spectral2", "tiled3", "spectral3" or "spectralN"
     (lattice_route), or "shard" for operators cut to slabs (a sharded fit
-    at p = 1, 2 or 3, whatever use_kernels says: the slabs have no other
-    route)."""
+    at any p, whatever use_kernels says: the slabs have no other route)."""
     if ops.slab is not None:
         from multivartv_tpu_torch.parallel import tiled_shard
         key = cfg.tiled_shard_key
-        if not tiled_shard.shard_supported(ops.m, ops.binaries, key):
+        if key not in tiled_shard._REGISTRY:
             raise ValueError(f"operators cut to row slabs need a SolverConfig whose "
                              f"tiled_shard_key registers their row group (got {key}); "
                              "parallel.fit.mvtv_sharded sets it")
@@ -320,17 +325,22 @@ def fused_chunks(ops: Operators, cfg: SolverConfig) -> bool:
             and ops.dct_halves_lp is not None and xupdate_supported(ops.m))
 
 
-def _carries(ops: Operators, route: Optional[str]) -> bool:
+def _carries(ops: Operators, cfg: SolverConfig, route: Optional[str]) -> bool:
     """Whether a route's dual kernel carries dta/dtu: the tiled routes, and
-    the shard route at p >= 2 (at p = 1 its stages are plain)."""
-    return route in CARRY_ROUTES and not (route == "shard" and len(ops.m) == 1)
+    the shard route where its slab kernels run (tiled_shard.shard_supported
+    at p = 2 and 3; elsewhere its stages are plain)."""
+    if route == "shard":
+        from multivartv_tpu_torch.parallel import tiled_shard
+        return len(ops.m) > 1 and tiled_shard.shard_supported(ops.m, ops.binaries,
+                                                              cfg.tiled_shard_key)
+    return route in CARRY_ROUTES
 
 
 def tiled_route(ops: Operators, cfg: SolverConfig) -> bool:
     """Whether the solve runs the tiled kernels (2-D above 2^20 knots, 3-D
     from TILED3_MIN_KNOTS, the slab kernels): the routes with the dta/dtu
     carries."""
-    return _carries(ops, solve_route(ops, cfg))
+    return _carries(ops, cfg, solve_route(ops, cfg))
 
 
 def _seed_adjoints(ops: Operators, state: ADMMState) -> ADMMState:
@@ -374,13 +384,14 @@ def make_admm_iteration(ops: Operators, problem: Problem, lam: torch.Tensor,
     runs over the row group (parallel/halo.py), so that each rank reads the
     same norms and takes the same branches."""
     route = solve_route(ops, cfg)
-    tiled = _carries(ops, route)
+    tiled = _carries(ops, cfg, route)
     kernel_stats = route == "whole" or tiled
     one_kernel = route == "whole" and xupdate_supported(ops.m)
     # counts in the spectral CG's layout, only where that CG runs (JAX
     # admm.py:279-282).
     spectral_cg = (
-        (route in SPECTRAL_ROUTES and cfg.spectral_cg and xla_packed_applies(ops, cfg))
+        (route in SPECTRAL_ROUTES + ("shard",) and cfg.spectral_cg
+         and xla_packed_applies(ops, cfg))
         or (route == "whole" and whole_xupdate(ops, cfg, one_kernel) == "spectral"))
     counts_blocked = counts_to_layout(ops, problem.counts, cfg) if spectral_cg else None
     dtype = problem.oty.dtype
@@ -390,15 +401,6 @@ def make_admm_iteration(ops: Operators, problem: Problem, lam: torch.Tensor,
     cbar = ops.total(problem.counts) / ops.ntheta
     wmasks = _true_masks(ops, true_m, dtype, problem.oty.device)
     kern_tm = tuple(true_m) if wmasks is not None else None
-    if ops.slab is None:
-        def gsum(x):
-            return x
-    else:
-        from multivartv_tpu_torch.parallel.halo import psum
-
-        def gsum(x):
-            return psum(x, ops.slab.group)
-
     def body(s: ADMMState) -> ADMMState:
         dta = dtu = None
         if tiled:
@@ -453,16 +455,20 @@ def make_admm_iteration(ops: Operators, problem: Problem, lam: torch.Tensor,
             primal_res = tuple(a - dt for a, dt in zip(alpha, d_theta))
             u = tuple(w + r for w, r in zip(u_eff, primal_res))
             dual_res = s.rho * ops.apply_Dt(primal_res)
-            primal_norm = torch.sqrt(gsum(diff_ops.blocks_norm_sq(primal_res)))
-            dual_norm = torch.sqrt(gsum(torch.sum(torch.square(dual_res))))
-            dtu_norm = torch.sqrt(gsum(torch.sum(torch.square(ops.apply_Dt(u)))))
             if wmasks is not None:
                 d_theta = tuple(dt * wm for dt, wm in zip(d_theta, wmasks))
                 alpha_w = tuple(a * wm for a, wm in zip(alpha, wmasks))
             else:
                 alpha_w = alpha
-            d_theta_norm = torch.sqrt(gsum(diff_ops.blocks_norm_sq(d_theta)))
-            alpha_norm = torch.sqrt(gsum(diff_ops.blocks_norm_sq(alpha_w)))
+            # The five Boyd sums, over the row group in one call on slabs.
+            sums = (diff_ops.blocks_norm_sq(primal_res), torch.sum(torch.square(dual_res)),
+                    torch.sum(torch.square(ops.apply_Dt(u))), diff_ops.blocks_norm_sq(d_theta),
+                    diff_ops.blocks_norm_sq(alpha_w))
+            if ops.slab is not None:
+                from multivartv_tpu_torch.parallel.halo import psum
+                sums = tuple(psum(torch.stack(sums), ops.slab.group))
+            primal_norm, dual_norm, dtu_norm, d_theta_norm, alpha_norm = (
+                torch.sqrt(v) for v in sums)
         eps_dual = tol * (sqrt_ntheta + dtu_norm)
         eps_primal = tol * (sqrt_rowsd + torch.maximum(d_theta_norm, alpha_norm))
         rho, new_scale = kernels.adapt_rho(s.rho, primal_norm, dual_norm, cfg.adapt_tau,
@@ -526,11 +532,13 @@ def admm_fused_chunk(ops: Operators, problem: Problem, lam: torch.Tensor,
 
 def _bf16_escape_applies(ops: Operators, cfg: SolverConfig, route: Optional[str]) -> bool:
     """Whether a single solve arms the bf16 escape (JAX admm.py:537-555):
-    Boyd with dct_pcg on a kernel route where the dense float32 DCT
-    matrices exist (up to 2048 per axis) and the x-update runs bf16
-    transforms: the folded bf16 DCT (xla_packed_applies; not under
-    xla_packed=False) or the whole route's one-kernel x-update."""
-    if not (route not in (None, "shard", "tridiag") and cfg.bf16_residual_escape
+    Boyd with dct_pcg on a kernel route or the shard route where the dense
+    float32 DCT matrices exist (up to 2048 per axis) and the x-update runs
+    bf16 transforms: the folded bf16 DCT (xla_packed_applies; not under
+    xla_packed=False) or the whole route's one-kernel x-update.  The
+    escape's tail runs the exact float32 PCG (xla_packed=False): the exact
+    route, or on slabs the shard route's exact arm."""
+    if not (route not in (None, "tridiag") and cfg.bf16_residual_escape
             and _boyd_dct(cfg) and ops.dct_mats is not None):
         return False
     return xla_packed_applies(ops, cfg) or (route == "whole" and xupdate_supported(ops.m))
@@ -611,7 +619,7 @@ def admm_solve(ops: Operators, problem: Problem, lam: torch.Tensor, state: ADMMS
     ops_true = ops
     ops, problem, state, crop, (s_nt, s_rd, t_m) = _pad_for_single(ops, problem, state, cfg)
     route = solve_route(ops, cfg)
-    if _carries(ops, route):
+    if _carries(ops, cfg, route):
         state, crop = _tiled_setup(ops_true, ops, state, crop, lam)
     per_iter_body = make_admm_iteration(ops, problem, lam, cfg, stop_ntheta=s_nt,
                                         stop_rows=s_rd, true_m=t_m)
@@ -621,7 +629,7 @@ def admm_solve(ops: Operators, problem: Problem, lam: torch.Tensor, state: ADMMS
 
     escape = _bf16_escape_applies(ops, cfg, route)
     if escape:
-        f32_cfg = dataclasses.replace(cfg, use_kernels=False, chunk_iters=1)
+        f32_cfg = dataclasses.replace(cfg, use_kernels=False, xla_packed=False, chunk_iters=1)
         tail_body = make_admm_iteration(ops, problem, lam, f32_cfg, stop_ntheta=s_nt,
                                         stop_rows=s_rd, true_m=t_m)
     else:
@@ -656,7 +664,7 @@ def admm_fixed_iterations(ops: Operators, problem: Problem, lam: torch.Tensor,
     ops_true = ops
     ops, problem, state, crop, (s_nt, s_rd, t_m) = _pad_for_single(ops, problem, state, cfg)
     route = solve_route(ops, cfg)
-    if _carries(ops, route):
+    if _carries(ops, cfg, route):
         state, crop = _tiled_setup(ops_true, ops, state, crop, lam)
     elif fused_chunks(ops, cfg):
         chunk = min(resolve_chunk(cfg), n_iters)

@@ -87,13 +87,13 @@ class Operators:
     def apply_D(self, theta):
         if self.slab is not None:
             from multivartv_tpu_torch.parallel.halo import slab_apply_D
-            return slab_apply_D(theta, self.slab, self.scales)
+            return slab_apply_D(theta, self.slab, self.scales, self.binaries)
         return diff_ops.apply_D(theta, self.binaries, self.scales)
 
     def apply_Dt(self, blocks):
         if self.slab is not None:
             from multivartv_tpu_torch.parallel.halo import slab_apply_Dt
-            return slab_apply_Dt(blocks, self.slab, self.scales)
+            return slab_apply_Dt(blocks, self.slab, self.scales, self.binaries)
         return diff_ops.apply_Dt(blocks, self.binaries, self.scales)
 
     def apply_gram(self, theta):

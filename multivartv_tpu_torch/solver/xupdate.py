@@ -55,15 +55,30 @@ exact route; then for ``dct_pcg`` by route:
     on the 2-D tiled route, as the JAX package's ``tiled_ok`` makes it
     (xupdate.py:333-340, 502-527).  The exact-f32 route is this PCG.
 
-Operators cut to slabs (a sharded fit, parallel/) take the same plain PCG
-of the configured x-solver on the slabs: at p = 2 its r0 from
-``gram_residual_tiled_2d_shard`` (B9s) given b and its matvec B9s's kernel
-in matvec mode; at p = 3 its r0 from ``gram_residual_tiled_3d_shard``
-(B13s) with b formed in the kernel from the carries and its matvec
-``gram_matvec_tiled_3d_shard`` (the Laplacian march); every dot a sum over the row group, and the DCT
-preconditioner through the pencil transpose (JAX xupdate.py:361-371 off
-the TPU; on a TPU the JAX package runs the bf16 spectral CG there).  At
-p = 1 under dct_pcg the x-update is the partition solve
+Operators cut to slabs (a sharded fit, parallel/; the shard route) take
+the same three arms as the routes above, by ``xla_packed_applies`` and
+SolverConfig, as the JAX package's sharded x-update on a TPU
+(xupdate.py:360-376, 439-500):
+
+  * the spectral-correction CG across ranks (``_solve_spectral_sharded``):
+    the single card's layout and vector type on the global lattice, r0
+    from ``gram_residual_tiled_2d_shard`` (B9s, p = 2) or
+    ``gram_residual_tiled_3d_shard`` (B13s, p = 3) with b formed in the
+    kernel from the carries, or in plain PyTorch at p >= 4 and with the
+    reduced block set; the transforms of parallel/spectral.py (axes
+    1 .. p-1 on the slab, axis 0 on the pencil after one all_to_all; the
+    spectral blocks and the eigenvalue blocks on the pencil, the counts
+    product on the slab), every dot a sum over the row group;
+  * ``spectral_cg=False``: the natural-domain bf16 PCG, its matvec B9s's
+    matvec mode (p = 2) or the slab matvec ``gram_matvec_tiled_3d_shard``
+    (p = 3; plain PyTorch elsewhere), its preconditioner the packed bf16
+    DCT solve across ranks;
+  * ``xla_packed=False``, odd axes and the other x-solvers: the plain PCG
+    on the slabs, r0 from B9s given b or B13s with b formed from the
+    carries, its matvec the same as the natural arm's, the dense float32
+    DCT preconditioner through the pencil transpose (``_sharded_dct_solve``).
+
+At p = 1 under dct_pcg the x-update is the partition solve
 (solver/tridiag.py::partition_xupdate: T1 on each rank's segment).
 
 The JAX package's ``stack_elementwise`` option (off in production) is not
@@ -74,6 +89,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from multivartv_tpu_torch.config import SolverConfig
@@ -138,27 +154,38 @@ def counts_to_layout(ops: Operators, counts: torch.Tensor, cfg: SolverConfig):
     so the rule is applied to their values)."""
     lay = spectral_layout(ops)
     p = len(ops.m)
-    if lay == "quartered":
+    top = torch.max(counts)
+    if ops.slab is not None and lay in ("quartered", "blocked"):
+        # On slabs the counts product runs in the natural layout
+        # (parallel/spectral.py); the largest count is the group's.
+        from multivartv_tpu_torch.parallel.halo import pmax
+        out, top = (counts,), pmax(top, ops.slab.group)
+    elif lay == "quartered":
         out = dct_ops.to_blocks4(counts, p)
     elif lay == "blocked":
         out = dct_ops.to_blocks(counts, p)
     else:
         return None
     vd = spectral_vec_dtype(ops, cfg)
-    if vd is not None and not float(torch.max(counts)) > 256.0:
+    if vd is not None and not float(top) > 256.0:
         out = tuple(c.to(vd) for c in out)
     return out
 
 
 def _spectral_cg_generic(r0, x0, to_b, from_b, fwd, inv, eigs_blocks, rho, cbar,
-                         n_steps: int, counts_b, vec_dtype=None) -> Tuple[torch.Tensor, int]:
+                         n_steps: int, counts_b, vec_dtype=None,
+                         gsum=None) -> Tuple[torch.Tensor, int]:
     """Fixed-step spectral-correction CG over a tuple-of-blocks layout from
     the natural-domain residual r0 (JAX xupdate.py:155-256, without
     stack_elementwise): vectors stored in vec_dtype, every dot and weight
     in float32, z = r / w never stored, the last step's direction update
     skipped.  Every cast is explicit: torch keeps a 0-dim float32 tensor
-    times a bf16 tensor in bf16, where JAX promotes to float32."""
+    times a bf16 tensor in bf16, where JAX promotes to float32.  gsum: the
+    sum of a dot over the row group (slabs, parallel/spectral.py)."""
     vd = r0.dtype if vec_dtype is None else vec_dtype
+    if gsum is None:
+        def gsum(x):
+            return x
 
     def bmap(f, *ts):
         return tuple(f(*xs) for xs in zip(*ts))
@@ -167,11 +194,11 @@ def _spectral_cg_generic(r0, x0, to_b, from_b, fwd, inv, eigs_blocks, rho, cbar,
         return cbar + rho * e.to(_F32)
 
     def bdot(a, c):
-        return sum(torch.sum(x.to(_F32) * y.to(_F32)) for x, y in zip(a, c))
+        return gsum(sum(torch.sum(x.to(_F32) * y.to(_F32)) for x, y in zip(a, c)))
 
     def wdot(a):
-        return sum(torch.sum(torch.square(x.to(_F32)) / weight(e))
-                   for x, e in zip(a, eigs_blocks))
+        return gsum(sum(torch.sum(torch.square(x.to(_F32)) / weight(e))
+                        for x, e in zip(a, eigs_blocks)))
 
     rh = fwd(tuple(v.to(vd) for v in to_b(r0)))
     p = bmap(lambda r, e: (r.to(_F32) / weight(e)).to(vd), rh, eigs_blocks)
@@ -260,10 +287,50 @@ def _initial_residual(ops: Operators, counts, b, rho, x0, lay: str, kernel: bool
     return residual(b, x0, counts, rho, ops.scales, rhs_parts=rhs_parts)
 
 
+def _shard_residual(ops: Operators, counts, b, rho, x0, rhs_parts, kernel: bool):
+    """r0 = b - (counts + rho D'D) x0 on slabs: B9s (p = 2) or B13s (p = 3)
+    with b formed in the kernel from rhs_parts where the slab kernels run
+    (kernel: the route's carries, admm._carries), else plain PyTorch with b
+    given (the JAX package's residual=None)."""
+    from multivartv_tpu_torch.parallel import tiled_shard
+    slab = ops.slab
+    if not kernel:
+        return b - (counts * x0 + rho * ops.apply_gram(x0))
+    residual = (tiled_shard.gram_residual_tiled_3d_sharded if len(ops.m) == 3
+                else tiled_shard.gram_residual_tiled_2d_sharded)
+    return residual(slab, None if rhs_parts is not None else b, x0, counts, rho, ops.scales,
+                    rhs_parts=rhs_parts)
+
+
+def _solve_spectral_sharded(ops: Operators, counts, cbar, b, rho, x0, cfg: SolverConfig,
+                            counts_layout, rhs_parts, kernel: bool):
+    """The spectral-correction CG across ranks on slabs: the single card's
+    layout and vector type on the global lattice, r0 from the slab kernels
+    (_shard_residual), the transforms of parallel/spectral.py (the
+    spectral blocks on the pencil, the counts product on the slab), every
+    dot summed over the row group."""
+    from multivartv_tpu_torch.parallel import spectral
+    from multivartv_tpu_torch.parallel.halo import psum
+    lay = spectral_layout(ops)
+    vd = None if lay == "packed" else spectral_vec_dtype(ops, cfg)
+    tr = spectral.slab_transforms(ops, lay, vec_bf16=vd is not None)
+    if counts_layout is None:
+        counts_layout = counts_to_layout(ops, counts, cfg) or (counts,)
+    r0 = _shard_residual(ops, counts, b, rho, x0, rhs_parts, kernel)
+    return _spectral_cg_generic(
+        r0, x0, to_b=lambda v: (v,), from_b=lambda t: t[0], fwd=tr.fwd, inv=tr.inv,
+        eigs_blocks=tr.eigs, rho=rho, cbar=cbar, n_steps=n_fixed_steps(cfg),
+        counts_b=counts_layout, vec_dtype=vd, gsum=lambda x: psum(x, ops.slab.group))
+
+
 def _solve_tiled(ops: Operators, counts, cbar, b, rho, x0, cfg: SolverConfig, counts_blocked,
                  rhs_parts, kernel: bool = True):
     """The spectral-correction CG of the tiled (kernel: r0 from B9, B10 or
-    B13) and spectral (r0 in plain PyTorch) routes (see module doc)."""
+    B13) and spectral (r0 in plain PyTorch) routes (see module doc), and
+    of the shard route across ranks (_solve_spectral_sharded)."""
+    if ops.slab is not None:
+        return _solve_spectral_sharded(ops, counts, cbar, b, rho, x0, cfg, counts_blocked,
+                                       rhs_parts, kernel)
     n_steps = n_fixed_steps(cfg)
     lay = spectral_layout(ops)
     r0 = _initial_residual(ops, counts, b, rho, x0, lay, kernel, rhs_parts)
@@ -335,10 +402,27 @@ def _solve_natural(ops: Operators, counts, cbar, b, rho, x0, cfg: SolverConfig, 
     D'D) on the bf16 folded halves (dctn_packed's rounding points are JAX's
     mat_dtype=bf16 ones), the vectors float32; the matvec is
     gram_matvec_tiled_2d (B10) on the 2-D tiled route, as the JAX package's
-    tiled_ok makes it, and plain PyTorch elsewhere (tiled3 included)."""
+    tiled_ok makes it, and plain PyTorch elsewhere (tiled3 included).  On
+    slabs the matvec is B9s's matvec mode (p = 2) or the slab matvec
+    (p = 3) where the slab kernels run, plain PyTorch elsewhere; the
+    preconditioner's packed transforms run across ranks
+    (parallel/spectral.py) and every dot is summed over the row group."""
     halves = ops.dct_halves_lp
     w = cbar + rho * ops.gram_eigs_packed
-    if tiled and len(ops.m) == 2:
+    fwd, inv = (lambda v: dct_ops.dctn_packed(v, halves)), (
+        lambda v: dct_ops.idctn_packed(v, halves))
+    gsum = _identity
+    if ops.slab is not None:
+        from multivartv_tpu_torch.parallel import spectral
+        from multivartv_tpu_torch.parallel.halo import psum
+        tr = spectral.slab_transforms(ops, "packed")
+        fwd, inv = (lambda v: tr.fwd((v,))[0]), (lambda v: tr.inv((v,))[0])
+
+        def gsum(x):
+            return psum(x, ops.slab.group)
+
+        matvec = _shard_matvec(ops, counts, rho, tiled)
+    elif tiled and len(ops.m) == 2:
         def matvec(v):
             return kernels.gram_matvec_tiled_2d(v, counts, rho, ops.scales)
     else:
@@ -347,53 +431,55 @@ def _solve_natural(ops: Operators, counts, cbar, b, rho, x0, cfg: SolverConfig, 
 
     def matvec_dot(v):
         av = matvec(v)
-        return av, torch.sum(v * av)
+        return av, gsum(torch.sum(v * av))
 
     def precond_dot(r):
-        rhat = dct_ops.dctn_packed(r, halves)
+        rhat = fwd(r)
         zhat = rhat / w
-        return dct_ops.idctn_packed(zhat, halves), torch.sum(rhat * zhat)
+        return inv(zhat), gsum(torch.sum(rhat * zhat))
 
     res = pcg_fused(matvec_dot, precond_dot, b, x0, n_iters=n_fixed_steps(cfg))
     return res.x, res.iters
 
 
+def _identity(x):
+    return x
+
+
+def _shard_matvec(ops: Operators, counts, rho, kernel: bool):
+    """(counts + rho D'D) v on slabs with v's halos: B9s's matvec mode
+    (p = 2) or the slab matvec (gram_matvec_tiled_3d_shard, p = 3) where
+    the slab kernels run (kernel), plain PyTorch elsewhere."""
+    from multivartv_tpu_torch.parallel import tiled_shard
+    slab = ops.slab
+    if kernel:
+        mv = (tiled_shard.gram_matvec_tiled_3d_sharded if len(ops.m) == 3
+              else tiled_shard.gram_matvec_tiled_2d_sharded)
+        return lambda v: mv(slab, v, counts, rho, ops.scales)
+    return lambda v: counts * v + rho * ops.apply_gram(v)
+
+
 def _solve_plain(ops: Operators, counts, cbar, b, rho, x0, cfg: SolverConfig, tiled: bool,
                  rhs_parts=None):
     """The plain PCG (JAX xupdate.py:502-527; see module doc).  On slabs
-    (ops.slab, the shard route) its r0 = b - (counts + rho D'D) x0 is B9s
-    given b (p = 2) or B13s with b formed from rhs_parts (p = 3, where the
-    route passes them), its matvec B9s's matvec mode or the p = 3 slab
-    matvec (gram_matvec_tiled_3d_shard), all with v's halos (plain
-    stencils at p = 1); every dot is a sum over the row group, and the DCT
+    (ops.slab, the shard route's exact arm) where the slab kernels run,
+    its r0 = b - (counts + rho D'D) x0 is B9s given b (p = 2) or B13s with
+    b formed from rhs_parts (p = 3, where the route passes them), its
+    matvec B9s's matvec mode or the p = 3 slab matvec
+    (gram_matvec_tiled_3d_shard), all with v's halos; elsewhere (p = 1,
+    p >= 4, the reduced block set) r0 and the matvec are plain stencils on
+    the slabs.  Every dot is a sum over the row group, and the DCT
     preconditioner runs through the pencil transpose
     (_sharded_dct_solve).  That is the JAX package's sharded x-update off
-    the TPU (xupdate.py: 361-371, 502-527); on a TPU it runs the bf16
-    spectral-correction CG (ROADMAP: the spectral CG across ranks)."""
+    the TPU (xupdate.py: 361-371, 502-527) and under xla_packed=False."""
     slab, r0, dots = ops.slab, None, _dots
     if slab is not None:
-        from multivartv_tpu_torch.parallel import tiled_shard
         from multivartv_tpu_torch.parallel.halo import psum
 
-        p = len(ops.m)
-        if p == 3:
-            def matvec(v):
-                return tiled_shard.gram_matvec_tiled_3d_sharded(slab, v, counts, rho,
-                                                                ops.scales)
-
-            r0 = tiled_shard.gram_residual_tiled_3d_sharded(
-                slab, None if rhs_parts is not None else b, x0, counts, rho, ops.scales,
-                rhs_parts=rhs_parts)
-        elif p == 2:
-            def matvec(v):
-                return tiled_shard.gram_matvec_tiled_2d_sharded(slab, v, counts, rho,
-                                                                ops.scales)
-
-            r0 = tiled_shard.gram_residual_tiled_2d_sharded(slab, b, x0, counts, rho,
-                                                            ops.scales)
-        else:
-            def matvec(v):
-                return counts * v + rho * ops.apply_gram(v)
+        matvec = _shard_matvec(ops, counts, rho, tiled)
+        if tiled:
+            r0 = _shard_residual(ops, counts, b, rho, x0,
+                                 rhs_parts if len(ops.m) == 3 else None, kernel=True)
 
         def dots(pairs):
             return psum(_dots(pairs), slab.group)
@@ -433,19 +519,21 @@ def _solve_plain(ops: Operators, counts, cbar, b, rho, x0, cfg: SolverConfig, ti
 
 def _mat_along(x: torch.Tensor, t: torch.Tensor, axis: int, inverse: bool) -> torch.Tensor:
     """The dense DCT matrix t (or, inverse, its transpose) applied along
-    axis 0, 1 or 2 of a 3-D array, as one matrix product on a view (no
-    permuted copy): axis 0 on the (m0, rest) view, axis 1 batched over
-    axis 0, axis 2 from the right."""
+    any axis of an array, as one matrix product on a view (no permuted
+    copy): axis 0 on the (m0, rest) view, the last axis from the right,
+    an inner axis batched over the axes before it on the (before, m_axis,
+    after) view."""
     t = t.T if inverse else t
     if axis == 0:
         return (t @ x.reshape(x.shape[0], -1)).view(x.shape)
-    if axis == 1:
-        return torch.matmul(t, x)
-    return x @ t.T
+    if axis == x.ndim - 1:
+        return x @ t.T
+    lead = int(np.prod(x.shape[:axis], dtype=np.int64))
+    return torch.matmul(t, x.reshape(lead, x.shape[axis], -1)).view(x.shape)
 
 
 def _sharded_dct_solve(ops: Operators, r: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """idctn(dctn(r) / w) on slabs: the transforms of axes 1 (and 2) on
+    """idctn(dctn(r) / w) on slabs: the transforms of axes 1 .. p-1 on
     this rank's slab, those of axis 0 and the division by w (the pencil of
     cbar + rho eigs) on its pencil, after the pencil transpose
     (parallel/halo.py); dense float32 matrices with TF32 off, or the FFT
@@ -495,8 +583,10 @@ def solve_x(ops: Operators, counts: torch.Tensor, cbar: torch.Tensor,
     itself (b may then be None; every other branch forms b from them);
     spectral: the no-kernel spectral routes (b given); counts_blocked:
     counts in the spectral layout, converted once per solve by the caller.
-    Operators cut to row slabs (ops.slab) take the plain PCG on the slabs."""
+    Operators cut to row slabs (ops.slab) take the arms on the slabs (see
+    module doc)."""
     packed = xla_packed_applies(ops, cfg)
+    spectral = spectral or ops.slab is not None
     if packed and cfg.spectral_cg and (tiled or spectral):
         return _solve_tiled(ops, counts, cbar, b, rho, x0, cfg, counts_blocked, rhs_parts,
                             kernel=tiled)

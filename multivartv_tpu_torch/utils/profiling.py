@@ -16,6 +16,7 @@ import os
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 
 
@@ -93,19 +94,43 @@ def lattice_tensors(shape) -> tuple:
     return n, sum(storages.values())
 
 
+# The lattice-sized operand sets of an Operators: the Gram eigenvalues in
+# each layout the x-update divides by (solver/problem.py).
+EIGEN_SETS = ("gram_eigs", "gram_eigs_packed", "gram_eigs_blocked", "gram_eigs_blocked_lp",
+              "gram_eigs_quartered", "gram_eigs_quartered_lp")
+
+
+def operand_shares(ops) -> dict:
+    """{field: the set's bytes over the whole lattice's set's}: each
+    eigenvalue set of ops (EIGEN_SETS) counted by bytes, since a set of
+    2^p or 4^p half- or quarter-sized blocks is whole-lattice-sized though
+    no tensor in it has the lattice's shape.  1.0 is a whole set."""
+    out = {}
+    for name in EIGEN_SETS:
+        v = getattr(ops, name, None)
+        if v is None:
+            continue
+        ts = v if isinstance(v, tuple) else (v,)
+        whole = int(np.prod(ops.m)) * ts[0].element_size()
+        out[name] = sum(t.numel() * t.element_size() for t in ts) / whole
+    return out
+
+
 @contextlib.contextmanager
 def solve_census(shape, first_only: bool = False):
-    """Takes ``lattice_tensors(shape)`` as each ADMM solve of the enclosed
-    block starts (before its first iteration), or as the first one starts
-    under first_only.  Yields the list of counts, one (tensors, bytes) a
-    census, and the seconds the censuses took (a one-element list)."""
+    """Takes ``lattice_tensors(shape)`` and the solve's ``operand_shares``
+    as each ADMM solve of the enclosed block starts (before its first
+    iteration), or as the first one starts under first_only.  Yields the
+    list of censuses, one (tensors, bytes, shares) a solve, and the seconds
+    the censuses took (a one-element list)."""
     from ..solver import admm
     solve, seen, seconds = admm.admm_solve, [], [0.0]
 
     def census(*args, **kwargs):
         if not (first_only and seen):
             t0 = time.perf_counter()
-            seen.append(lattice_tensors(shape))
+            ops = args[0] if args else kwargs["ops"]
+            seen.append(lattice_tensors(shape) + (operand_shares(ops),))
             seconds[0] += time.perf_counter() - t0
         return solve(*args, **kwargs)
 

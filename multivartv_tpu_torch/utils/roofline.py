@@ -37,6 +37,9 @@ Where the port's model departs from the JAX package's:
   (xla_packed=False) model the port's other two x-updates of the same
   routes; "pcg" takes its products in float32 on the CUDA cores (TF32
   off, the exact route's preconditioner) at ``PEAK_F32_FLOPS``.
+* **The shard route** (``model_report(ranks=W)``, ``shard_collectives``):
+  the JAX model has none; one rank's share of the same stages, and the
+  collectives of each x-update arm across ranks.
 * **The packed layout's r0**: the port forms b and then r0 through B10 (2-D)
   or B13 with b given (3-D); the model keeps the JAX stage ("cg.r0",
   b's assembly fused in), so it is a bound for that layout too.
@@ -361,14 +364,45 @@ def model_report_1d(n: int, kind: Optional[str] = None,
     return rep
 
 
+def shard_collectives(x_update: str, n_steps: int) -> Tuple[Dict, Dict]:
+    """(per CG step, per iteration) collective calls of the shard route's
+    x-update arm with its stages around it (solver/xupdate.py,
+    parallel/spectral.py): all_to_alls (the pencil transposes), all_reduces
+    (the group sums) and halo exchanges.  The spectral CG: its forward
+    transform 3 all_to_alls and its inverse 1, <p, A p> and r'z; the
+    natural arm: the packed transform pair and the matvec's halo; the exact
+    arm: the dense preconditioner's 2 transposes and its matvec's halo.
+    Around them r0's halo (the natural arm: its matvec), and the dual
+    stage's halo and one sum (B8s / B12s, or the plain stage's five sums in
+    one call).  A group of one makes none of these calls."""
+    n = n_steps
+    if x_update == "spectral":
+        step = {"all_to_all": 4, "all_reduce": 2, "halo": 0}
+        it = {"all_to_all": 4 * n + 4, "all_reduce": 2 * n + 2, "halo": 2}
+    elif x_update == "natural":
+        step = {"all_to_all": 4, "all_reduce": 2, "halo": 1}
+        it = {"all_to_all": 4 * n + 4, "all_reduce": 2 * n + 2, "halo": n + 2}
+    elif x_update == "pcg":
+        step = {"all_to_all": 2, "all_reduce": 2, "halo": 1}
+        it = {"all_to_all": 2 * n + 2, "all_reduce": 2 * n + 2, "halo": n + 2}
+    else:
+        raise ValueError(f"unknown x_update: {x_update!r}")
+    return step, it
+
+
 def model_report(m: Tuple[int, ...], n_steps: int = 3, layout: str = "quartered",
                  kind: Optional[str] = None, measured_iters_per_s: Optional[float] = None,
-                 vec_bf16: Optional[bool] = None, x_update: str = "spectral") -> Dict:
+                 vec_bf16: Optional[bool] = None, x_update: str = "spectral",
+                 ranks: Optional[int] = None) -> Dict:
     """Roofline summary of one iteration of the tiled routes at lattice m
     (see iteration_stages): the model's bytes and operations, its bound in
     iterations/s at the published peaks and at the practical bandwidth,
     the floor's for the spectral CG, and with a measurement the fraction
-    of each bound it reached."""
+    of each bound it reached.  ranks: the shard route on that many ranks
+    (the same stages, each rank a 1/ranks share of every lattice array; the
+    bound is one rank's), with its collectives per CG step and per
+    iteration (shard_collectives) and the bytes each rank's all_to_alls
+    send to the others per iteration."""
     ntheta = int(np.prod(m))
     bw, tflops = device_peaks(kind)
     bw_b, fl_s = bw * 1e9, tflops * 1e12
@@ -381,6 +415,8 @@ def model_report(m: Tuple[int, ...], n_steps: int = 3, layout: str = "quartered"
     stages_m = iteration_stages(m, n_steps, layout, vec_bf16=vec_bf16, x_update=x_update)
     mb, mf, mt = tally(stages_m)
     _, _, mt_prac = tally(stages_m, bw_b * PRACTICAL_BW_FRACTION)
+    w = 1 if ranks is None else int(ranks)
+    mb, mf, mt, mt_prac = mb / w, mf / w, mt / w, mt_prac / w
     rep = {
         "m": list(m),
         "layout": {"pcg": "dense", "natural": "packed"}.get(x_update, layout),
@@ -392,9 +428,16 @@ def model_report(m: Tuple[int, ...], n_steps: int = 3, layout: str = "quartered"
         "model_bound_iters_per_s": round(1.0 / mt, 1),
         "practical_bound_iters_per_s": round(1.0 / mt_prac, 1),
     }
+    if ranks is not None:
+        step, it = shard_collectives(x_update, n_steps)
+        vb = _vec_bytes(m, vec_bf16) if x_update == "spectral" else 4
+        rep.update(ranks=w, collectives_per_cg_step=step, collectives_per_iter=it,
+                   all_to_all_mb_per_rank_per_iter=round(
+                       it["all_to_all"] * ntheta * vb * (w - 1) / w / w / 1e6, 3))
     ft = None
     if x_update == "spectral":
         fb, _, ft = tally(floor_stages(m, n_steps, layout, vec_bf16))
+        fb, ft = fb / w, ft / w
         rep["floor_gb_per_iter"] = round(fb / 1e9, 4)
         rep["floor_bound_iters_per_s"] = round(1.0 / ft, 1)
     if measured_iters_per_s:

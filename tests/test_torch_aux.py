@@ -254,7 +254,8 @@ def test_solve_census_counts_lattice_tensors(setup):
     """solve_census takes lattice_tensors as each ADMM solve starts (only
     the first under first_only) and puts admm_solve back: a tensor of the
     lattice's trailing shape made between two solves adds one to the count
-    and its bytes to the storages'."""
+    and its bytes to the storages'; beside them the solve's eigenvalue sets
+    as shares of the whole lattice's (a single card's: whole)."""
     from multivartv_tpu_torch.utils import profiling
     _, _, ops, pr, lambdas = setup
     lam = torch.tensor(lambdas[2], dtype=torch.float32)
@@ -269,5 +270,6 @@ def test_solve_census_counts_lattice_tensors(setup):
             admm.admm_solve(ops, pr, lam, state, cfg)
     assert admm.admm_solve is solve
     assert len(seen) == 2 and len(first) == 1 and seconds[0] > 0
-    assert seen[1] == (seen[0][0] + 1, seen[0][1] + extra.numel() * extra.element_size())
+    assert seen[1][:2] == (seen[0][0] + 1, seen[0][1] + extra.numel() * extra.element_size())
     assert first[0][0] == seen[1][0]
+    assert seen[1][2] == profiling.operand_shares(ops) and seen[1][2]["gram_eigs"] == 1.0

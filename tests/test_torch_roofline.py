@@ -214,3 +214,32 @@ def test_arm_models(x_update):
             rl.iteration_stages((4096, 4096), k, x_update="pcg")
     with pytest.raises(ValueError):
         rl.iteration_stages(m, k, x_update="bogus")
+
+
+@pytest.mark.parametrize("x_update", ["spectral", "natural", "pcg"])
+def test_shard_route_model(x_update):
+    """model_report(ranks=W): one rank's share of the tiled route's stages
+    (bytes, products and the bound divided by W), and the collectives of
+    the shard route's x-update arm: per CG step the spectral CG's four
+    all_to_alls (three in the forward transform, one in the inverse) and two
+    group sums, the natural arm's four and its matvec's halo, the exact
+    arm's two (the dense preconditioner's transposes); per iteration those
+    of the steps and of the stages around them; each rank's all_to_all
+    bytes (W - 1) / W of its share per call."""
+    m, k, w = (2048, 2048), 3, 4
+    whole = rl.model_report(m, k, x_update=x_update, kind=H100)
+    rep = rl.model_report(m, k, x_update=x_update, kind=H100, ranks=w)
+    assert rep["ranks"] == w
+    assert rep["model_gb_per_iter"] == pytest.approx(whole["model_gb_per_iter"] / w, abs=1e-4)
+    assert rep["model_bound_iters_per_s"] == pytest.approx(
+        whole["model_bound_iters_per_s"] * w, rel=1e-3)
+    step, it = rl.shard_collectives(x_update, k)
+    assert rep["collectives_per_cg_step"] == step and rep["collectives_per_iter"] == it
+    assert step["all_to_all"] == (2 if x_update == "pcg" else 4) and step["all_reduce"] == 2
+    assert it["all_to_all"] == step["all_to_all"] * (k + 1)
+    vb = 4
+    assert rep["all_to_all_mb_per_rank_per_iter"] == pytest.approx(
+        it["all_to_all"] * m[0] * m[1] * vb * (w - 1) / w / w / 1e6, abs=1e-3)
+    assert "ranks" not in whole
+    with pytest.raises(ValueError):
+        rl.shard_collectives("bogus", k)

@@ -9,10 +9,12 @@ process on a (1, W, 1) mesh at p = 3 and a (1, W) mesh at p = 1 of as many
 virtual CPU devices (axis 0 divides by W there).  Off the TPU the JAX
 package runs its SPMD route: the tolerance-driven DCT-preconditioned PCG
 at p = 3 and the cyclic reduction at p = 1; the port runs its shard route
-(B13s's r0 and matvec, the pencil-transposed DCT preconditioner, B12s's
-dual stage with the carries at p = 3; the partition solve, T1 on each
-segment, at p = 1): fits are compared on lambdas, CV MSEs, the chosen
-index and the objective.  The spawned fits cap each solve at 30
+under SolverConfig(xla_packed=False), the same algorithm (B13s's r0 and
+matvec, the pencil-transposed DCT preconditioner, B12s's dual stage with
+the carries at p = 3; the partition solve, T1 on each segment, at p = 1;
+its default x-update, the spectral CG across ranks, is held against the
+JAX package's TPU x-update in tests/test_torch_shard_spectral.py): fits
+are compared on lambdas, CV MSEs, the chosen index and the objective.  The spawned fits cap each solve at 30
 iterations on both sides; the fits of one rank in this process run to
 convergence.  The slab kernels' plain versions are also held, cut
 unevenly, against the JAX package's whole-lattice B12 and B13 in
@@ -57,14 +59,21 @@ X_SOLVER_FITS = {2: "dct_direct", 4: "jacobi_pcg"}
 ONE_RANK = {"p3": ((4, 4, 2), (0.3, 0.1, 0.03)), "p1": (M1, (0.3, 0.1, 0.03))}
 PIECES_M3, PIECES_N1 = (11, 9, 7), 40
 # The whole-lattice census (test_sharded_fit_keeps_no_whole_lattice): 2
-# ranks, folds 3, N_LAMBDA lambdas; p = 3 keeps only the MSEs on its path,
-# so that it refits at the chosen lambda, and p = 2 keeps the path's
-# thetas.  The census is taken as each solve starts, so a few iterations
-# a solve do (CAP's would take the file's two census fits from ~15 s to
-# ~50 s).  (m, path store, ADMM solves a rank.)
+# ranks, folds 3, N_LAMBDA lambdas, the default x-update (the spectral CG
+# across ranks); p = 3 keeps only the MSEs on its path, so that it refits
+# at the chosen lambda, and p = 2 keeps the path's thetas.  The census is
+# taken as each solve starts, so a few iterations a solve do (CAP's would
+# take the file's two census fits from ~15 s to ~50 s).  The layout gates
+# are lowered so that the blocked (p = 3) and quartered (p = 2) eigenvalue
+# sets exist beside the packed one.  (m, path store, ADMM solves a rank,
+# gates, the eigenvalue sets the solves hold.)
 CENSUS_WORLD, CENSUS_FOLDS, CENSUS_CAP = 2, 3, 4
-CENSUS = {"p3": ((16, 12, 10), "mse", CENSUS_FOLDS * N_LAMBDA + N_LAMBDA + 1),
-          "p2": ((32, 24), "fitted", CENSUS_FOLDS * N_LAMBDA + N_LAMBDA)}
+ALL_SETS = ("gram_eigs", "gram_eigs_packed", "gram_eigs_blocked", "gram_eigs_blocked_lp",
+            "gram_eigs_quartered", "gram_eigs_quartered_lp")
+CENSUS = {"p3": ((16, 12, 10), "mse", CENSUS_FOLDS * N_LAMBDA + N_LAMBDA + 1,
+                 dict(blocked_min_half=4), ALL_SETS[:4]),
+          "p2": ((32, 24), "fitted", CENSUS_FOLDS * N_LAMBDA + N_LAMBDA,
+                 dict(quarter_min_axis=4), ALL_SETS)}
 
 _data = ranks_lib.fit_data
 
@@ -91,15 +100,16 @@ def spawned(tmp_path_factory):
             if folds > 1:
                 labels = str(tmp / f"labels{_name(m, folds)}.npy")
                 np.save(labels, _labels(len(_data(m, seed=11)[1]), folds))
-            cfg = dict(max_iters=CAP, **({"x_solver": x_solver} if x_solver else {}))
+            cfg = dict(max_iters=CAP, xla_packed=False,
+                       **({"x_solver": x_solver} if x_solver else {}))
             jobs[_name(m, folds, x_solver)] = ("mvtv_sharded", dict(
                 m=m, seed=11, n_lambda=N_LAMBDA, folds=folds, cfg=cfg, labels_file=labels))
         out[world] = ranks_lib.Ranks(world, str(tmp), jobs)
     jobs = {case: ("whole_lattice_census", dict(m=m, seed=11, n_lambda=N_LAMBDA,
                                                 folds=CENSUS_FOLDS,
                                                 cfg=dict(max_iters=CENSUS_CAP),
-                                                store=store))
-            for case, (m, store, _) in CENSUS.items()}
+                                                store=store, gates=gates))
+            for case, (m, store, _, gates, _) in CENSUS.items()}
     out["census"] = ranks_lib.Ranks(CENSUS_WORLD, str(tmp_path_factory.mktemp("census")), jobs)
     return out
 
@@ -196,7 +206,8 @@ def test_mvtv_sharded_one_rank_matches_jax(case):
     orig = cv.kfold_indices
     cv.kfold_indices = lambda n, k, seed: labels
     try:
-        got = fit.mvtv_sharded(x, y, m=m, lambdas=lambdas, folds=2, device="cpu")
+        got = fit.mvtv_sharded(x, y, m=m, lambdas=lambdas, folds=2, device="cpu",
+                               solver_config=SolverConfig(xla_packed=False))
     finally:
         cv.kfold_indices = orig
     assert got.solver_config.tiled_shard_key is not None
@@ -207,21 +218,28 @@ def test_mvtv_sharded_one_rank_matches_jax(case):
 
 @pytest.mark.parametrize("case", sorted(CENSUS))
 def test_sharded_fit_keeps_no_whole_lattice(spawned, case):
-    """After the cut no rank holds a tensor of the whole lattice's shape:
-    mvtv_sharded on 2 gloo ranks (p = 3 at 16 x 12 x 10, p = 2 at 32 x 24;
-    3 folds, 3 lambdas) counts, at the start of every ADMM solve of the
-    CV, the full path and the refit, the live tensors whose trailing shape
-    is the lattice's (after a gc pass), and finds none on either rank (the
-    JAX package's devices hold only their shards).  Each count is taken
-    before its solve's first iteration, so the solves' cap (CENSUS_CAP, not
-    the file's CAP, for time) cannot change it.  The returned model is
-    whole, on the host: finite, and at p = 2 its theta is the path's at
-    the chosen lambda."""
-    m, store, solves = CENSUS[case]
+    """After the cut no rank holds a tensor of the whole lattice's shape,
+    nor a whole-lattice-sized set of eigenvalue blocks: mvtv_sharded on 2
+    gloo ranks (p = 3 at 16 x 12 x 10, p = 2 at 32 x 24; 3 folds, 3
+    lambdas; the default x-update, the spectral CG across ranks) counts,
+    at the start of every ADMM solve of the CV, the full path and the
+    refit, the live tensors whose trailing shape is the lattice's (after a
+    gc pass), and finds none on either rank (the JAX package's devices
+    hold only their shards); and it counts each eigenvalue set of the
+    solve's operators by bytes (the packed, blocked and quartered sets and
+    their bf16 copies: 2^p or 4^p blocks, none of the lattice's shape), and
+    finds on each rank its share, half of the whole set (its pencil; the
+    sets have no halos).  Each count is taken before its solve's first
+    iteration, so the solves' cap (CENSUS_CAP, not the file's CAP, for
+    time) cannot change it.  The returned model is whole, on the host:
+    finite, and at p = 2 its theta is the path's at the chosen lambda."""
+    m, store, solves, _, sets = CENSUS[case]
     r = {k.split("/")[1]: v for k, v in spawned["census"].result().items()
          if k.startswith(case + "/")}
     assert int(r["solves"]) == CENSUS_WORLD * solves
     assert int(r["whole"]) == 0
+    assert float(r["share"]) == 1.0 / CENSUS_WORLD
+    assert int(r["sets"]) == sum(1 << ALL_SETS.index(name) for name in sets)
     assert r["theta"].shape == m and np.all(np.isfinite(r["theta"]))
     assert r["lambdas"].shape == (N_LAMBDA,) and np.all(np.isfinite(r["cv_mses"]))
     if store == "fitted":
@@ -231,23 +249,28 @@ def test_sharded_fit_keeps_no_whole_lattice(spawned, case):
 
 
 def test_refusals_name_roadmap():
-    """p = 1 and p = 3 take the shard route; p >= 4, the reduced block set,
-    a 2-D process grid and the fold axis dp still raise NotImplementedError
-    naming ROADMAP, and a chain needs two knots per rank."""
+    """Every p takes the shard route with either block set (C7): the row
+    layout of default_lattice_mesh at p = 1 .. 4, and mvtv_sharded fits
+    p = 4 and the reduced block set (here on a group of one, 2 lambdas, its
+    solves capped); a 2-D process grid and the fold axis dp still raise
+    NotImplementedError naming ROADMAP, and a chain needs two knots per
+    rank."""
     from multivartv_tpu_torch.config import SolverConfig
 
-    for p in (1, 2, 3):
+    for p in (1, 2, 3, 4):
         group, names = distributed.global_lattice_mesh(p)
         assert group.size == 1 and names[1] == "sx" and len(names) == (2 if p == 1 else 3)
-    for call in (lambda: fit.default_lattice_mesh(4), lambda: fit.default_lattice_mesh(3, dp=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fit.default_lattice_mesh(3, dp=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fit._sharded_solver_config(SolverConfig(), RowGroup(rank=0, size=2), ("sy", "sx"))
-    x, y = _data(M3, seed=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fit.mvtv_sharded(x, y, m=M3, n_lambda=2, folds=1, device="cpu",
-                         solver_config=SolverConfig(include_full_mixed=False))
+    for m, full in (((4, 4, 4, 4), True), (M3, False), ((8, 8), False)):
+        x, y = _data(m, seed=2)
+        model = fit.mvtv_sharded(x, y, m=m, n_lambda=2, folds=1, device="cpu",
+                                 solver_config=SolverConfig(include_full_mixed=full,
+                                                            max_iters=CAP))
+        assert model.theta_lattice.shape == m and np.all(np.isfinite(model.theta_lattice))
+        assert np.all(np.isfinite(model.cv_mses))
     with pytest.raises(ValueError):
         RowSlab(make_device_mesh(), (1,))
 

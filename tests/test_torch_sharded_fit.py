@@ -9,8 +9,11 @@ its explicit solver and (1, W, 1) for mvtv_sharded.  Both worlds' rank
 processes start together at the first test and run while the JAX side
 computes.  The JAX package's sharded fit off the TPU runs its plain route
 (the tolerance-driven DCT-preconditioned PCG, jnp stencils), the port its
-shard route (B9s's r0, the pencil-transposed DCT preconditioner, B8s's
-dual stage with the carries), the same algorithm: fits are compared on
+shard route under SolverConfig(xla_packed=False) (B9s's r0, the
+pencil-transposed DCT preconditioner, B8s's dual stage with the carries),
+the same algorithm (the port's default x-update, the spectral CG across
+ranks, is held against the JAX package's TPU x-update in
+tests/test_torch_shard_spectral.py): fits are compared on
 lambdas, CV MSEs, the chosen index and the objective, not theta element by
 element (tests/test_torch_admm.py).  To keep the file to about half a
 minute, where gloo's ~0.1-0.3 ms per collective multiplies tens of
@@ -86,7 +89,8 @@ def spawned(tmp_path_factory):
                 labels = str(tmp / f"labels{m[0]}x{m[1]}.npy")
                 np.save(labels, _labels(len(_data(m, seed=11)[1]), folds))
             jobs[f"mvtv{m[0]}x{m[1]}f{folds}"] = ("mvtv_sharded", dict(
-                m=m, seed=11, n_lambda=N_LAMBDA, folds=folds, cfg=dict(max_iters=CAP),
+                m=m, seed=11, n_lambda=N_LAMBDA, folds=folds,
+                cfg=dict(max_iters=CAP, xla_packed=False),
                 labels_file=labels))
         out[world] = ranks_lib.Ranks(world, str(tmp), jobs)
     return out
@@ -107,7 +111,8 @@ def _objective(y, fitted, theta, lam, deltas):
 
 def test_mvtv_sharded_one_rank_matches_jax(caplog):
     """A row group of one rank in this process (no process group, no
-    collective call) runs the same shard route to convergence: against the
+    collective call) runs the same shard route (its exact arm,
+    xla_packed=False) to convergence: against the
     JAX package's mvtv_sharded on one device (8 x 8, 5 lambdas, 2 folds with
     JAX's labels), the same grid and chosen index, the CV MSEs within 1e-4
     and the objective within 2e-5; and the config adaptation is logged."""
@@ -123,7 +128,8 @@ def test_mvtv_sharded_one_rank_matches_jax(caplog):
     cv.kfold_indices = lambda n, k, seed: labels
     try:
         with caplog.at_level(logging.WARNING, logger="multivartv_tpu_torch"):
-            got = fit.mvtv_sharded(x, y, m=m, n_lambda=5, folds=2, device="cpu")
+            got = fit.mvtv_sharded(x, y, m=m, n_lambda=5, folds=2, device="cpu",
+                                   solver_config=SolverConfig(xla_packed=False))
     finally:
         cv.kfold_indices = orig
     assert any("adapted SolverConfig" in rec.message for rec in caplog.records)
@@ -171,8 +177,9 @@ def test_folds_merge_into_an_explicit_cv_config(entry):
 def test_distributed_bring_up_and_config_adaptation():
     """No process group comes up without a rendezvous; the backend follows
     the device (gloo on the CPU; NCCL, or an error, on CUDA); Jacobi PCG
-    gets its 10 fixed steps, as in the JAX package; a 2-D process grid and
-    p >= 4 are refused (p = 1 and 3: tests/test_torch_shard3d.py)."""
+    gets its 10 fixed steps, as in the JAX package; a 2-D process grid is
+    refused, and p >= 4 gets the row layout (p = 1 and 3:
+    tests/test_torch_shard3d.py)."""
     assert distributed.init_distributed() is False
     assert distributed.backend_for("cpu") == "gloo"
     if not torch.distributed.is_nccl_available():
@@ -186,8 +193,8 @@ def test_distributed_bring_up_and_config_adaptation():
     assert fit._sharded_solver_config(cfg) is cfg
     with pytest.raises(ValueError):
         make_device_mesh((2, 2), ("sx", "sy"))      # four ranks asked of one
-    with pytest.raises(NotImplementedError):
-        fit.default_lattice_mesh(4)
+    group, names = fit.default_lattice_mesh(4)      # p >= 4 is cut too (C7)
+    assert group.size == 1 and names == ("dp", "sx", "sy")
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -222,23 +222,39 @@ def test_bf16_escape_gate(monkeypatch, route_m, arm, armed):
 def test_entry_points_accept_the_arms(arm):
     """mvtv, mvtv_one, solve_path and mvtv_sharded (a group of one) take
     each arm.  On the whole route (8 x 8) the kernels B3-B7 do not read the
-    switches, and the row slabs have no folded DCT (their x-update is the
-    plain PCG), so every result equals the default config's."""
+    switches, so mvtv's and mvtv_one's results equal the default config's.
+    The row slabs take the arm's x-update as the tiled routes do (the
+    spectral CG across ranks by default, _solve_natural under
+    spectral_cg=False, _solve_plain under xla_packed=False; every x-update
+    of the sharded fit on the slabs), and fit to the same chosen index."""
     from multivartv_tpu_torch import mvtv
     from multivartv_tpu_torch.config import PathConfig
     from multivartv_tpu_torch.parallel import fit
     from multivartv_tpu_torch.solver import path
     x, y = _data((8, 8), seed=3)
     cfgs = {name: SolverConfig(**extra) for name, extra in (("default", {}), (arm, ARMS[arm]))}
-    fits = {name: (mvtv(x, y, m=(8, 8), n_lambda=3, folds=2, solver_config=c, device="cpu"),
-                   mvtv_one(x, y, m=(8, 8), lam=LAM, solver_config=c, device="cpu"),
-                   fit.mvtv_sharded(x, y, m=(8, 8), n_lambda=3, folds=1, solver_config=c,
-                                    device="cpu"))
-            for name, c in cfgs.items()}
+    names = {"default": "_solve_spectral_sharded", "spectral_cg=False": "_solve_natural",
+             "xla_packed=False": "_solve_plain"}
+    fits, calls = {}, {}
+    for name, c in cfgs.items():
+        seen = calls.setdefault(name, set())
+        with pytest.MonkeyPatch.context() as mp:
+            for f in names.values():
+                def spy(ops, *a, _f=getattr(xupdate, f), _n=f, **k):
+                    seen.add((_n, ops.slab is not None))
+                    return _f(ops, *a, **k)
+                mp.setattr(xupdate, f, spy)
+            sharded = fit.mvtv_sharded(x, y, m=(8, 8), n_lambda=3, folds=1, solver_config=c,
+                                       device="cpu")
+        fits[name] = (mvtv(x, y, m=(8, 8), n_lambda=3, folds=2, solver_config=c, device="cpu"),
+                      mvtv_one(x, y, m=(8, 8), lam=LAM, solver_config=c, device="cpu"), sharded)
     (m0, o0, s0), (m1, o1, s1) = fits["default"], fits[arm]
     np.testing.assert_array_equal(m1.cv_mses, m0.cv_mses)
     np.testing.assert_array_equal(o1["theta_lattice"], o0["theta_lattice"])
-    np.testing.assert_array_equal(s1.theta_lattice, s0.theta_lattice)
+    assert calls["default"] == {(names["default"], True)}
+    assert calls[arm] == {(names[arm], True)}
+    assert s1.lambda_minmse_ind == s0.lambda_minmse_ind
+    assert np.all(np.isfinite(s1.theta_lattice)) and s1.solver_config.tiled_shard_key
     _, _, _, _, _, ops, problem = _setup(x, y, (8, 8), None, cfgs[arm], DEFAULT_MESH, "cpu")
     lams = torch.tensor([0.5, LAM])
     p0, p1 = (path.solve_path(ops, problem, lams, c, PathConfig(n_lambda=2))

@@ -27,12 +27,13 @@ def _sharded_admm(m, counts, oty, gram_diag, ybar, scales, lam, cfg):
 def fit_data(m, seed):
     """The fits' data: test_sharded_fit.py's step surface at 8 x 8, about 3
     samples per knot of a smooth surface otherwise (a smooth volume at
-    p = 3; at p = 1 a step plus a sine at sorted x, the fused lasso's)."""
+    p >= 3; at p = 1 a step plus a sine at sorted x, the fused lasso's)."""
     rng = np.random.RandomState(seed)
-    if len(m) == 3:
+    if len(m) >= 3:
         n = 3 * int(np.prod(m))
-        x = rng.uniform(0, 1, (n, 3))
-        return x, np.sin(3 * x[:, 0]) * np.cos(2 * x[:, 1]) + x[:, 2] + 0.2 * rng.randn(n)
+        x = rng.uniform(0, 1, (n, len(m)))
+        return x, (np.sin(3 * x[:, 0]) * np.cos(2 * x[:, 1]) + x[:, 2:].sum(1)
+                   + 0.2 * rng.randn(n))
     if len(m) == 1:
         n = 3 * m[0]
         x = np.sort(rng.uniform(0, 1, n))
@@ -46,11 +47,23 @@ def fit_data(m, seed):
     return x, np.sin(3 * x[:, 0]) * np.cos(2 * x[:, 1]) + 0.2 * rng.randn(n)
 
 
-def _mvtv_sharded(m, seed, n_lambda, folds, cfg, labels_file=None):
+def set_gates(quarter_min_axis=None, blocked_min_half=None):
+    """Lower the spectral CG's layout gates in this process (None: keep):
+    solver/problem.py's QUARTER_MIN_AXIS and solver/xupdate.py's
+    BLOCKED_MIN_HALF, as the single-card tests lower them."""
+    from multivartv_tpu_torch.solver import problem, xupdate
+    if quarter_min_axis is not None:
+        problem.QUARTER_MIN_AXIS = quarter_min_axis
+    if blocked_min_half is not None:
+        xupdate.BLOCKED_MIN_HALF = blocked_min_half
+
+
+def _mvtv_sharded(m, seed, n_lambda, folds, cfg, labels_file=None, gates=None):
     from multivartv_tpu_torch.config import SolverConfig
     from multivartv_tpu_torch.parallel.fit import mvtv_sharded
     from multivartv_tpu_torch.solver import cv
 
+    set_gates(**(gates or {}))
     x, y = fit_data(m, seed)
     if labels_file is not None:     # the JAX package's fold labels
         labels = torch.as_tensor(np.load(labels_file))
@@ -62,27 +75,36 @@ def _mvtv_sharded(m, seed, n_lambda, folds, cfg, labels_file=None):
             "fitted": model.fitted, "key": np.asarray(model.solver_config.tiled_shard_key)}
 
 
-def _whole_lattice_census(m, seed, n_lambda, folds, cfg, store):
+def _whole_lattice_census(m, seed, n_lambda, folds, cfg, store, gates=None):
     """mvtv_sharded with a census as every ADMM solve (each fold's, the full
     path's, the refit's) starts, before its first iteration: the live torch
     tensors whose trailing shape is the whole lattice's, counted after a gc
-    pass (utils.profiling.solve_census).  Each rank's largest count and
-    number of solves, summed over the ranks; the model's lambdas, CV MSEs
-    and theta."""
+    pass, and the solve's eigenvalue sets by bytes, each as a share of the
+    whole lattice's set (utils.profiling.solve_census).  Each rank's
+    largest count and number of solves, summed over the ranks; the largest
+    share of any set on any rank and the sets seen (a bit each, in
+    profiling.EIGEN_SETS order); the model's lambdas, CV MSEs and theta.
+    gates: set_gates's, so that the blocked and quartered sets exist."""
     import torch.distributed as dist
     from multivartv_tpu_torch.config import PathConfig, SolverConfig
     from multivartv_tpu_torch.parallel.fit import mvtv_sharded
-    from multivartv_tpu_torch.utils.profiling import solve_census
+    from multivartv_tpu_torch.utils.profiling import EIGEN_SETS, solve_census
 
+    set_gates(**(gates or {}))
     x, y = fit_data(m, seed)
     with solve_census(m) as (seen, _):
         model = mvtv_sharded(x, y, m=m, n_lambda=n_lambda, folds=folds,
                              solver_config=SolverConfig(**cfg),
                              path_config=PathConfig(n_lambda=n_lambda, store=store),
                              device="cpu")
-    totals = torch.tensor([max(n for n, _ in seen), len(seen)], dtype=torch.int64)
+    shares = [v for *_, sh in seen for v in sh.values()]
+    sets = sum(1 << k for k, name in enumerate(EIGEN_SETS) if any(name in sh for *_, sh in seen))
+    totals = torch.tensor([max(n for n, *_ in seen), len(seen)], dtype=torch.int64)
     dist.all_reduce(totals)
+    top = torch.tensor([max(shares)], dtype=torch.float64)
+    dist.all_reduce(top, op=dist.ReduceOp.MAX)
     return {"whole": totals[0].numpy(), "solves": totals[1].numpy(),
+            "share": top[0].numpy(), "sets": np.asarray(sets),
             "lambdas": model.lambdas, "cv_mses": model.cv_mses, "theta": model.theta_lattice,
             "path_theta": np.stack([e["theta_hat"] for e in model.models])
             if "theta_hat" in model.models[0] else np.zeros(0)}
@@ -274,7 +296,127 @@ def _pieces_3d(m, n1, seed):
     return {k: np.asarray(v) for k, v in err.items()}
 
 
-JOBS = {"sharded_admm": _sharded_admm, "mvtv_sharded": _mvtv_sharded, "pieces": _pieces,
+def f32_operands(ops):
+    """ops with the spectral CG's per-axis operands (the folded halves, the
+    quartered transform's matrices) in float32 in place of bf16."""
+    import dataclasses
+
+    from multivartv_tpu_torch.ops import dct as dct_ops
+    quarters = None
+    if ops.dct_quarters_lp is not None:
+        quarters = tuple(dct_ops.dct_quarter_mats(v, device=ops.deltas.device) for v in ops.m)
+    return dataclasses.replace(ops, dct_halves_lp=ops.dct_halves, dct_quarters_lp=quarters)
+
+
+def _spectral_pieces(ms, seed):
+    """The shard route's x-update arms on this rank's slab against the
+    single card's on the whole lattice (every rank holds it), from a warm
+    x0 (the exact solution, perturbed), each lattice of ms under each
+    layout (the gates lowered here and restored after) and vector type:
+    the spectral CG across ranks against _solve_tiled, and with float32
+    vectors once more with float32 per-axis operands on both sides
+    (f32_operands); once a lattice (the
+    other arms' vectors are float32 and read no layout) spectral_cg=False
+    against _solve_natural (the largest errors over max|x - x0|), and
+    xla_packed=False against the exact PCG with the folded halves removed
+    (the largest absolute error) and against the single card's exact PCG
+    (_solve_plain; the largest absolute error and the difference in CG
+    steps).  The slab kernels' plain versions form r0
+    (and the natural arm's matvec) at p = 2 and 3, as the single card's
+    tiled route's do; at p = 4 the stencils are plain on both sides."""
+    import dataclasses
+
+    from multivartv_tpu_torch.config import SolverConfig
+    from multivartv_tpu_torch.parallel import fit, halo
+    from multivartv_tpu_torch.parallel.sharding import RowSlab, make_device_mesh
+    from multivartv_tpu_torch.solver import problem, xupdate
+    from multivartv_tpu_torch.solver.problem import build_operators
+
+    saved = (problem.QUARTER_MIN_AXIS, xupdate.BLOCKED_MIN_HALF)
+    gates = {"quartered": dict(quarter_min_axis=4),
+             "blocked": dict(quarter_min_axis=1 << 20, blocked_min_half=4),
+             "packed": dict(quarter_min_axis=1 << 20, blocked_min_half=1 << 20)}
+    err = {"spectral": 0.0, "spectral f32": 0.0, "natural": 0.0, "exact arm": 0.0, "exact vs one card": 0.0,
+           "exact iterations": 0, "cases": 0}
+    grp = make_device_mesh()
+    t = torch.as_tensor
+    try:
+        for m in ms:
+            rng = np.random.RandomState(seed + len(m))
+            slab = RowSlab(grp, m)
+            rows = slab.rows
+            counts = t(rng.poisson(3, m).astype(np.float32))
+            oty = t((rng.randn(*m) * counts.numpy()).astype(np.float32))
+            dta, dtu = (t((0.3 * rng.randn(*m)).astype(np.float32)) for _ in range(2))
+            rho, us = t(np.float32(0.7)), t(np.float32(0.5))
+            b = oty + rho * (dta + us * dtu)
+            cbar = torch.sum(counts) / counts.numel()
+            parts = (oty, dta, us, dtu)
+            kern = len(m) in (2, 3)
+            for layout, g in gates.items():
+                set_gates(**g)
+                for vec in (False, True):
+                    cfg = SolverConfig(spectral_vec_bf16=vec)
+                    ops = build_operators(m, np.linspace(0.5, 1.3, len(m)).astype(np.float32),
+                                          cfg, "cpu", with_padded=False)
+                    assert xupdate.spectral_layout(ops) == layout
+                    x_star, _ = xupdate.solve_x(ops, counts, cbar, b, rho, torch.zeros(m),
+                                                SolverConfig(use_kernels=False))
+                    x0 = t((x_star.numpy() + 0.05 * rng.randn(*m)).astype(np.float32))
+                    scfg = fit._sharded_solver_config(cfg, grp)
+                    ops_s = fit.shard_operators(ops, slab)
+                    cut = dict(tiled=True, rhs_parts=tuple(
+                        v if v is us else rows(v) for v in parts)) if kern else {}
+                    bs = None if kern else rows(b)
+
+                    def sharded(o, c):
+                        return xupdate.solve_x(
+                            o, rows(counts), cbar, bs, rho, rows(x0), c,
+                            counts_blocked=xupdate.counts_to_layout(o, rows(counts), c), **cut)
+
+                    want = xupdate._solve_tiled(ops, counts, cbar, b, rho, x0, cfg,
+                                                xupdate.counts_to_layout(ops, counts, cfg),
+                                                parts if kern else None, kernel=kern)[0]
+                    got = halo.gather_rows(sharded(ops_s, scfg)[0], slab)
+                    scale = float((want - x0).abs().max())
+                    err["spectral"] = max(err["spectral"],
+                                          float((got - want).abs().max()) / scale)
+                    err["cases"] += 1
+                    if vec:
+                        continue
+                    # float32 per-axis operands on both sides: no bf16
+                    # rounding point, so only the order of the sums differs
+                    ops32 = f32_operands(ops)
+                    want = xupdate._solve_tiled(ops32, counts, cbar, b, rho, x0, cfg,
+                                                xupdate.counts_to_layout(ops32, counts, cfg),
+                                                parts if kern else None, kernel=kern)[0]
+                    got = halo.gather_rows(sharded(fit.shard_operators(ops32, slab), scfg)[0],
+                                           slab)
+                    err["spectral f32"] = max(err["spectral f32"],
+                                              float((got - want).abs().max()) / scale)
+                    if layout != "packed":   # the other arms read no layout
+                        continue
+                    nat = dataclasses.replace(scfg, spectral_cg=False)
+                    want = xupdate._solve_natural(ops, counts, cbar, b, rho, x0, nat,
+                                                  tiled=kern)[0]
+                    got = halo.gather_rows(sharded(ops_s, nat)[0], slab)
+                    err["natural"] = max(err["natural"],
+                                         float((got - want).abs().max()) / scale)
+                    exact_cfg = dataclasses.replace(scfg, xla_packed=False)
+                    exact, it_s = sharded(ops_s, exact_cfg)
+                    plain = sharded(dataclasses.replace(ops_s, dct_halves=None), scfg)[0]
+                    err["exact arm"] = max(err["exact arm"], float((exact - plain).abs().max()))
+                    one, it_1 = xupdate._solve_plain(ops, counts, cbar, b, rho, x0, exact_cfg,
+                                                     tiled=False)
+                    err["exact vs one card"] = max(err["exact vs one card"], float(
+                        (halo.gather_rows(exact, slab) - one).abs().max()))
+                    err["exact iterations"] = max(err["exact iterations"], abs(it_s - it_1))
+    finally:
+        problem.QUARTER_MIN_AXIS, xupdate.BLOCKED_MIN_HALF = saved
+    return {k: np.asarray(v) for k, v in err.items()}
+
+
+JOBS = {"sharded_admm": _sharded_admm, "spectral_pieces": _spectral_pieces, "mvtv_sharded": _mvtv_sharded, "pieces": _pieces,
         "pieces_3d": _pieces_3d, "whole_lattice_census": _whole_lattice_census}
 
 
