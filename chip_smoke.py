@@ -112,6 +112,12 @@ phase 18, run only when listed, runs C3's check (mvtv(folds=3,
 n_lambda=3) at 256 x 256 x 64 on the tiled3 route against the exact-f32
 route's tie set) at tol = 1e-4 and again at 1e-5 (the witness for its
 tolerances; about 18 minutes);
+phase 24, run only when listed, needs four cards: it runs mvtv_sharded
+across them, one NCCL rank a card in spawned processes (a probe of every
+collective, then 2048^2, 256^3 on both x-update arms, the fused lasso at
+N = 2^20 and 1024^2 with 4 folds on dp = 4 and dp = 2 x sx = 2), each fit
+against its witness on card 0 as a group of one, and times the iterations
+on four ranks beside one; with fewer cards its first check fails;
 phase 19, run only when listed, prints digests of the kernels' outputs on
 seeded inputs and times B1, B2, B4, B5, B7, B8, B9, B9s and its matvec,
 B10, B11s, B13 and T1 at their launch sizes with nothing else (copied into
@@ -128,6 +134,7 @@ phase header carries the seconds since the start.
     python3 chip_smoke.py --phases 1,2,20,21  # the p = 1 path, meshes, T1's timing
     python3 chip_smoke.py --phases 1,2,22     # the x-update arms, the resumed path
     python3 chip_smoke.py --phases 1,2,23     # the sharded fit at p = 3 and p = 1
+    python3 chip_smoke.py --phases 1,2,24     # the sharded fit across four cards
 """
 
 from __future__ import annotations
@@ -144,9 +151,13 @@ import numpy as np
 FAILURES = []
 GPU_LINE = "unknown"
 T_START = time.perf_counter()
+# Set in phase 24's worker processes but the first: they print nothing.
+QUIET = False
 
 
 def log(msg: str) -> None:
+    if QUIET:
+        return
     if msg.startswith("phase "):
         msg += f" [{time.perf_counter() - T_START:.1f} s]"
     print(msg, flush=True)
@@ -2549,12 +2560,19 @@ def _profile_group(key: str) -> str:
         return "B1 dual_update_2d"
     if "dual_tile_kernel" in head:
         return "B8 dual_update_tiled_2d"
-    if "gram_march_kernel" in head and head.endswith("true>"):
+    if "gram_march_kernel" in head and ", true," in head:    # <MODE, kSlab, kVec>
         return "B9s gram_residual_tiled_2d_shard and its matvec mode"
     if "gram_march_kernel<0" in head:
         return "B10 gram_matvec_tiled_2d"
     if "gram_march_kernel" in head:
         return "B9 gram_residual_tiled_2d"
+    if "nccl" in k:
+        return "NCCL collectives"
+    if "at::" not in head and any(t in head for t in ("segment_kernel<", "reduce_kernel<",
+                                                        "recover_kernel<")):
+        return "T1 xupdate_tridiag (whole chain or segment mode)"
+    if "finish_kernel(float const*, int, int" in k:
+        return "partition_finish"
     if "finish_kernel" in k or "init_scalars" in k:
         return "B8/B12 scalars and finish pass"
     if any(t in k for t in ("gemm", "sm90_", "xmma", "cutlass", "cublas")):
@@ -5106,6 +5124,642 @@ def phase_sharded3(device, errs):
     return launches, {k: v for k, v in times.items() if not k.startswith("iter ")}
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the sharded fit across four cards
+# ---------------------------------------------------------------------------
+
+# Phase 24 (run only when listed, on a machine with SHARD4_WORLD cards):
+# SHARD4_WORLD worker processes, one card and one NCCL rank each, run the
+# fits of SHARD4_FITS through mvtv_sharded, and the parent first runs each
+# fit's witness on card 0 as a group of one with the same data, grid and
+# caps.  label -> (data (kind, n), m, the mesh is the samples' x (p = 1),
+# folds, n_lambda, SolverConfig overrides, the workers' mesh shape, the
+# witness's label (None: its own)):
+#   (a) 2048^2 on bench.py's data at n = 2^20, the default arm: B8s, B9s
+#       with halos from other cards, the spectral CG's all_to_alls;
+#   (b) 256^3 (plane slabs of 64), the default arm and xla_packed=False: B12s,
+#       B13s and the slab matvec (the exact PCG's) with halo planes;
+#   (c) the fused lasso at N = 2^20 (m = N, mesh = x): T1's segment mode, the
+#       all_gather of the segments' end values and partition_finish; its
+#       witness runs T1 on the whole chain;
+#   (d) 1024^2, 4 folds over dp = 4 (sx = 1: one fold a card, no lattice
+#       collective), and (e) the same fit on dp = 2 x sx = 2, held against (d);
+#       both on the exact arm (xla_packed=False), whose sums across ranks
+#       differ from one card's in order only: under the default arm's bf16
+#       spectral CG, slabs on two ranks moved a fold's held-out MSEs 4.0e-4
+#       from one rank's (a CPU rehearsal at 64^2, 100 iterations a solve),
+#       the rounding of the spectral CG across ranks, not the fold axis;
+#       and on one card that arm's CV curve at 1024^2 holds its two lowest
+#       points 3.3e-4 apart, inside that rounding, so its chosen index is no
+#       stable gate there.
+# The caps keep the phase near 600 s: near lambda_max every route runs to its
+# cap, and the 2-D sharded iteration is host-bound (~45 ms on one card).
+SHARD4_WORLD = 4
+SHARD4_FITS = {
+    "(a) 2048^2": (("bench", 1 << 20), (2048, 2048), False, 1, 3, {"max_iters": 200},
+                   (1, 4, 1), None),
+    "(b) 256^3": (("cube", 1 << 22), (256, 256, 256), False, 1, 2, {"max_iters": 60},
+                  (1, 4, 1), None),
+    "(b) 256^3 xla_packed=False": (("cube", 1 << 22), (256, 256, 256), False, 1, 2,
+                                   {"max_iters": 60, "xla_packed": False}, (1, 4, 1), None),
+    "(c) fused lasso N=2^20": (("fused", FUSED_ONE), (FUSED_ONE,), True, 1, 3,
+                               {"max_iters": FUSED_CAP}, (1, 4), None),
+    "(d) 1024^2 dp=4": (("bench", 1 << 20), (1024, 1024), False, 4, 3,
+                        {"max_iters": 100, "xla_packed": False}, (4, 1, 1), None),
+    "(e) 1024^2 dp=2 sx=2": (("bench", 1 << 20), (1024, 1024), False, 4, 3,
+                             {"max_iters": 100, "xla_packed": False}, (2, 2, 1),
+                             "(d) 1024^2 dp=4"),
+}
+# The ms per iteration of (a)-(c) on 4 ranks and on 1: SHARD_ARM_ITERS
+# admm_fixed_iterations from one warm state (ARMS_WARM iterations from the
+# start) at lambda, the fit's arm (the exact one for the slab matvec, which
+# only it launches), and SHARD_ARM_PROFILE under the profiler.  label ->
+# (fit of SHARD4_FITS, lambda).
+SHARD4_TIMED = {"p = 2 2048^2": ("(a) 2048^2", 0.05), "p = 3 256^3": ("(b) 256^3", 0.05),
+                "p = 3 256^3 xla_packed=False": ("(b) 256^3 xla_packed=False", 0.05),
+                "p = 1 N=2^20": ("(c) fused lasso N=2^20", 1.0)}
+# The gates: (a) and (b) against their witnesses as tests/test_torch_shard_c7.py
+# holds two ranks against one device (the lambda grid 1e-5, the per-lambda
+# MSEs 1e-4, the chosen index) with the objective at every lambda within
+# SHARD4_OBJ relative; (c) the objective at the chosen lambda (the CPU tests'
+# gate: the partition solve against T1 on the whole chain); (d) each fold's
+# held-out MSEs within SHARD4_FOLD relative of the witness's fold solves (the
+# same code on identical cards, a row group of one each) and the same chosen
+# index; (e) each fold's within SHARD4_FOLD_E of (d)'s (its folds run on
+# slabs of two cards) and its chosen index in (d)'s tie set (MVTV_TIE).
+SHARD4_OBJ = 1e-5
+SHARD4_FOLD = 1e-6
+SHARD4_FOLD_E = 1e-4
+SHARD4_TIMEOUT = 1200.0    # seconds for the workers in all, then killed
+
+
+def shard4_data(kind: str, n: int):
+    return {"bench": bench_data, "cube": cube_data, "fused": fused_lasso_data}[kind](n)
+
+
+def shard4_fit(label, spec, device, mesh_shape=None):
+    """One fit of SHARD4_FITS: mvtv_sharded on the row group of
+    make_device_mesh(mesh_shape) (None: the default group, here a group of
+    one), under the launch counters and a spy on the fold solves' held-out
+    MSEs and on the pencil transposes (the spectral CG's all_to_alls).
+    Returns host numbers: seconds, lambdas, per-lambda MSEs, the chosen
+    index, iterations per lambda, the objective at every lambda (objective64,
+    float64), the folds this rank solved and their MSEs, the launches, the
+    transposes made and a digest of the model's arrays."""
+    import torch
+    from multivartv_tpu_torch import SolverConfig
+    from multivartv_tpu_torch.ops import kernels as K
+    from multivartv_tpu_torch.parallel import fit as pfit
+    from multivartv_tpu_torch.parallel import halo
+    from multivartv_tpu_torch.parallel.sharding import make_device_mesh
+    from multivartv_tpu_torch.solver import cv
+
+    (kind, n), m, mesh_is_x, folds, n_lambda, cfg, _, _ = spec
+    x, y = shard4_data(kind, n)
+    mesh = x[:, None] if mesh_is_x else None
+    group = None
+    if mesh_shape is not None:
+        names = ("dp", "sx") if len(m) == 1 else ("dp", "sx", "sy")
+        group = make_device_mesh(mesh_shape, names)
+    seen, moves = [], {"to_pencils": 0, "to_slabs": 0}
+    orig = (cv.cross_validate, halo.to_pencils, halo.to_slabs)
+
+    def cross_validate(*a, **kw):
+        res = orig[0](*a, **kw)
+        seen.append(res.fold_test_mse.double().cpu().numpy())
+        return res
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            moves[name] += 1
+            return fn(*a, **kw)
+        return run
+
+    cv.cross_validate = cross_validate
+    halo.to_pencils = counted("to_pencils", orig[1])
+    halo.to_slabs = counted("to_slabs", orig[2])
+    before = dict(K.launch_counts)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = pfit.mvtv_sharded(x, y, m=m, mesh=mesh, folds=folds, n_lambda=n_lambda,
+                                  device_mesh=group, solver_config=SolverConfig(**cfg),
+                                  device=device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        cv.cross_validate, halo.to_pencils, halo.to_slabs = orig
+    per = folds // (1 if group is None or group.fold is None else group.fold.size)
+    first = 0 if group is None or group.fold is None else group.fold.rank * per
+    oty = None
+    if group is not None and group.fold is not None:
+        # Each row group bins the whole problem on its own card: O'y's digest.
+        from multivartv_tpu_torch.api import _setup
+        from multivartv_tpu_torch.config import DEFAULT_MESH
+        oty = digest(_setup(x, y, m, mesh, SolverConfig(**cfg), DEFAULT_MESH, device)[6].oty)
+    h = hashlib.sha256()
+    for a in (model.lambdas, model.cv_mses, model.theta_lattice, model.fitted):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return {"seconds": seconds, "lambdas": np.asarray(model.lambdas, np.float64),
+            "cv_mses": np.asarray(model.cv_mses, np.float64),
+            "best": int(model.lambda_minmse_ind),
+            "iters": [int(mm["iters"]) for mm in model.models],
+            "objective": [model_objective(model, i) if i == model.lambda_minmse_ind
+                          or "theta_hat" in model.models[i] else float("nan")
+                          for i in range(len(model.models))],
+            "folds": list(range(first, first + per)) if folds > 1 else [],
+            "fold_mse": seen[0] if seen else None,
+            "launches": {k: K.launch_counts[k] - before[k] for k in K.KERNELS
+                         if K.launch_counts[k] != before[k]},
+            "moves": dict(moves), "digest": h.hexdigest()[:16], "oty": oty,
+            "finite": bool(np.all(np.isfinite(model.theta_lattice))
+                           and np.all(np.isfinite(model.cv_mses)))}
+
+
+def device_spans(run) -> tuple:
+    """torch.profiler over run() (one recorded step after a dropped warm-up
+    step): (the union of every CUDA kernel's [start, end] interval, the
+    union of the NCCL kernels', the union of the others', their span from
+    the first start to the last end, the summed time by kernel group), in
+    ms.  Kernels on several streams overlap (NCCL's run on their own, and
+    spin while they wait for the other ranks), so the union, not the sum,
+    is the time the device was busy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _step in range(2):
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+    spans, groups = [], {}
+    for e in prof.events():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA") or e.name.startswith(
+                "ProfilerStep"):
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        if b > a:
+            spans.append((a, b, "nccl" in e.name.lower()))
+            g = _profile_group(e.name)
+            groups[g] = groups.get(g, 0.0) + (b - a) / 1e3
+
+    def union(items) -> float:
+        total, end = 0.0, None
+        for a, b in sorted(items):
+            if end is None or a > end:
+                total += b - a
+                end = b
+            elif b > end:
+                total += b - end
+                end = b
+        return total / 1e3
+
+    if not spans:
+        return 0.0, 0.0, 0.0, 0.0, {}
+    return (union((a, b) for a, b, _ in spans), union((a, b) for a, b, n in spans if n),
+            union((a, b) for a, b, n in spans if not n),
+            (max(b for _, b, _ in spans) - min(a for a, _, _ in spans)) / 1e3, groups)
+
+
+def shard4_iterations(label, spec, lam, device, group):
+    """SHARD_ARM_ITERS admm_fixed_iterations of the shard route on this rank's
+    slab from one warm state (ARMS_WARM iterations from the start), on the
+    fit's x-update arm: ms per iteration (CUDA events; every rank's run is one run,
+    the collectives keeping them in step), the launches per iteration, and a
+    SHARD_ARM_PROFILE-iteration profile (device_spans), per iteration: the
+    union of every kernel's intervals, the NCCL kernels' union (transfers,
+    and spin-waits while the other ranks' hosts enqueue), the other
+    kernels' union (the compute) and the idle share, 1 - compute / the
+    CUDA-event time, and the summed kernel time by group."""
+    import torch
+    from multivartv_tpu_torch.ops import kernels as K
+    from multivartv_tpu_torch.solver import admm
+
+    (kind, n), m, mesh_is_x, _, _, cfg, *_ = spec
+    x, y = shard4_data(kind, n)
+    arm = {k: v for k, v in cfg.items() if k != "max_iters"}
+    ops, pr, scfg, _ = shard_inputs(x, y, m, x[:, None] if mesh_is_x else None, device, group,
+                                    **arm)
+    lam_t = torch.tensor(lam, dtype=torch.float32, device=device)
+    warm = admm.admm_fixed_iterations(ops, pr, lam_t, admm.initial_state(ops, pr, lam_t / 5),
+                                      scfg, ARMS_WARM)
+
+    def run(n_it=SHARD_ARM_ITERS):
+        admm.admm_fixed_iterations(ops, pr, lam_t, warm, scfg, n_it)
+
+    run(2)
+    before = dict(K.launch_counts)
+    ms = cuda_time_ms(run, 1, warmup=0) / SHARD_ARM_ITERS
+    launches = {k: (K.launch_counts[k] - before[k]) / SHARD_ARM_ITERS for k in K.KERNELS
+                if K.launch_counts[k] != before[k]}
+    busy, nccl, compute, span, groups = (v / SHARD_ARM_PROFILE if isinstance(v, float)
+                                         else {k: t / SHARD_ARM_PROFILE for k, t in v.items()}
+                                         for v in device_spans(lambda: run(SHARD_ARM_PROFILE)))
+    return {"ms": ms, "launches": launches, "groups": groups, "busy": busy, "nccl": nccl,
+            "compute": compute, "span": span,
+            "idle": max(0.0, 1 - compute / ms) if busy else float("nan")}
+
+
+def shard4_collectives(device, world: int) -> dict:
+    """Each collective of the sharded fit once on small tensors, on the row
+    and fold groups of a (2, world / 2, 1) mesh and on the world: the halo
+    rows (batch_isend_irecv), the pencil transposes with uneven splits
+    (all_to_all_single), the padded gather of the slabs and the partition
+    solve's all_gather (all_gather), a group sum, the gather of the fold
+    axis and the broadcast of the lambda grid.  Every rank builds the same
+    9 x 7 lattice, offset by its dp index, so each result is known: the
+    largest absolute error of each."""
+    import torch
+    from multivartv_tpu_torch.parallel import halo
+    from multivartv_tpu_torch.parallel.fit import _broadcast
+    from multivartv_tpu_torch.parallel.sharding import RowSlab, make_device_mesh
+
+    mesh = make_device_mesh((2, world // 2, 1), ("dp", "sx", "sy"))
+    slab = RowSlab(mesh, (9, 7))
+    full = (torch.arange(63, dtype=torch.float32, device=device).reshape(9, 7)
+            + 100.0 * mesh.fold.rank)
+    mine = slab.rows(full)
+    lo, hi = slab.row_off, slab.row_off + slab.shape[0]
+    zero = torch.zeros(1, 7, device=device)
+    top, bot = halo.halo_pair(mine, mesh)
+    err = {"halo": max(float((top - (full[lo - 1:lo] if lo > 0 else zero)).abs().max()),
+                       float((bot - (full[hi:hi + 1] if hi < 9 else zero)).abs().max())),
+           "to_pencils": float((halo.rows_to_cols(mine, slab) - slab.cols(full)).abs().max()),
+           "to_slabs": float((halo.cols_to_rows(slab.cols(full), slab) - mine).abs().max()),
+           "gather_rows": float((halo.gather_rows(mine, slab) - full).abs().max()),
+           "psum": float((halo.psum(mine.sum().reshape(1), mesh) - full.sum()).abs().max())}
+    blocks = halo.gather_folds(torch.full((1, 3), float(mesh.fold.rank), device=device),
+                               mesh.fold)
+    err["gather_folds"] = float((blocks[:, 0] - torch.arange(2, device=device)).abs().max())
+    grid = _broadcast(torch.full((3,), float(mesh.world.rank + 1), device=device), mesh.world)
+    err["broadcast"] = float((grid - 1.0).abs().max())
+    return err
+
+
+def shard4_latency(device, world: int) -> dict:
+    """ms per call of the sharded fit's collectives at the sizes an
+    iteration gives them, on the row layout of the whole world and on the
+    row group of a (2, world / 2, 1) mesh: {name: (CUDA-event ms per call,
+    host us per call)}, each over 100 calls after 10 (the host's: the
+    enqueue of 100 calls, then one synchronize)."""
+    import torch
+    from multivartv_tpu_torch.parallel import halo
+    from multivartv_tpu_torch.parallel.sharding import RowSlab, make_device_mesh
+
+    row = make_device_mesh((1, world, 1), ("dp", "sx", "sy"))
+    sub = make_device_mesh((2, world // 2, 1), ("dp", "sx", "sy"))
+    slab = RowSlab(row, (2048, 2048))
+    v = torch.ones(slab.shape, device=device)
+    sums = torch.ones(5, device=device)
+    ends = torch.ones(7, device=device)
+    cases = {
+        "all_reduce of 5 floats, world": lambda: halo.psum(sums, row),
+        "all_reduce of 5 floats, row group of 2": lambda: halo.psum(sums, sub),
+        "halo rows, 3 x 2048 floats a side, world": lambda: halo.halo_rows(row, [v, v, v]),
+        "halo knot, 1 float a side, world": lambda: halo.halo_rows(row, [sums]),
+        "to_pencils of a 512 x 2048 slab, world": lambda: halo.to_pencils(
+            [v], row, slab.row_counts, slab.col_counts),
+        "all_gather of 7 floats, world": lambda: halo.gather_folds(ends[None], row),
+    }
+    out = {}
+    for name, fn in cases.items():
+        ms = cuda_time_ms(fn, 100, warmup=10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        host_us = (time.perf_counter() - t0) * 1e4
+        torch.cuda.synchronize()
+        out[name] = (ms, host_us)
+    return out
+
+
+def shard4_rank(rank: int, world: int, store: str, queue, fits: dict, timed: dict,
+                rehearse: bool = False) -> None:
+    """A worker of phase 24: card `rank` (the CPU and gloo when rehearse),
+    an NCCL rank of a world of `world`; every fit of `fits` on its mesh
+    (counters reset before the first), then the iterations of `timed` on
+    the row layout of the whole world.  Puts ("ok", rank, results) or
+    ("error", rank, traceback) on the queue."""
+    import traceback
+
+    global QUIET, GPU_LINE
+    QUIET = rank != 0
+    if not fits and rank == 0:
+        import os
+        os.environ.setdefault("NCCL_DEBUG", "INFO")     # the probe: NCCL's transports
+    import torch
+    import torch.distributed as dist
+    if rehearse:
+        rehearse_on_cpu()
+        device = torch.device("cpu")
+    else:
+        torch.cuda.set_device(rank)
+        device = torch.device("cuda", rank)
+        torch.backends.cuda.matmul.allow_tf32 = False     # as phase_device sets them
+        torch.backends.cudnn.allow_tf32 = False
+        lines = all_gpu_lines()
+        GPU_LINE = lines[rank] if rank < len(lines) else lines[0]
+    try:
+        from multivartv_tpu_torch.ops import kernels as K
+        from multivartv_tpu_torch.parallel import distributed
+        from multivartv_tpu_torch.parallel.fit import default_lattice_mesh
+
+        distributed.init_distributed(f"file://{store}", world_size=world, rank=rank,
+                                     device=device)
+        one = torch.ones(4, device=device)
+        dist.all_reduce(one)
+        out = {"backend": dist.get_backend(), "all_reduce": float(one[0]),
+               "device": str(device), "fits": {}, "timed": {},
+               "collectives": shard4_collectives(device, world),
+               "latency": shard4_latency(device, world) if not fits else {}}
+        K.reset_launch_counts()
+        for label, spec in fits.items():
+            log(f"  [rank 0 of {world}] {label} on the mesh {spec[6]}")
+            out["fits"][label] = shard4_fit(label, spec, device, spec[6])
+            torch.cuda.empty_cache()
+        out["launches"] = dict(K.launch_counts)
+        for label, (name, lam) in timed.items():
+            spec = fits[name]
+            group, _ = default_lattice_mesh(len(spec[1]))
+            out["timed"][label] = shard4_iterations(label, spec, lam, device, group)
+            torch.cuda.empty_cache()
+        queue.put(("ok", rank, out))
+    except Exception:
+        queue.put(("error", rank, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def rehearse_on_cpu() -> None:
+    """The CPU rehearsal's stand-ins for the card's timing calls (a worker
+    of phase 24 run with rehearse=True): synchronize does nothing and
+    cuda_time_ms takes the wall clock."""
+    import torch
+
+    def wall_ms(fn, reps: int, warmup: int = 2) -> float:
+        for _ in range(warmup):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    torch.cuda.synchronize = lambda *a, **kw: None
+    globals()["cuda_time_ms"] = wall_ms
+
+
+def shard4_workers(fits: dict, timed: dict, world: int = SHARD4_WORLD,
+                   rehearse: bool = False) -> dict:
+    """Spawn `world` workers (shard4_rank), wait for each one's results up to
+    SHARD4_TIMEOUT in all, and stop every one of them: {rank: results}.  A
+    worker that fails, or the time running out, ends the wait at once; its
+    traceback is logged and the phase's check fails."""
+    import queue as queue_lib
+    import tempfile
+
+    import torch
+    ctx = torch.multiprocessing.get_context("spawn")
+    results, errors = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        q = ctx.Queue()
+        procs = [ctx.Process(target=shard4_rank,
+                             args=(r, world, f"{tmp}/store", q, fits, timed, rehearse))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + SHARD4_TIMEOUT
+        try:
+            while len(results) < world and not errors:
+                try:
+                    status, rank, out = q.get(timeout=max(1.0, deadline - time.perf_counter()))
+                except queue_lib.Empty:
+                    errors.append(f"no result from ranks {sorted(set(range(world)) - set(results))}"
+                                  f" within {SHARD4_TIMEOUT:g} s")
+                    break
+                if status == "ok":
+                    results[rank] = out
+                else:
+                    errors.append(f"rank {rank}:\n{out}")
+        finally:
+            for p in procs:
+                p.join(timeout=30 if not errors else 5)
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            q.close()
+    for e in errors:
+        log(f"  phase 24 worker failure: {e}")
+    check(not errors and len(results) == world, f"phase 24: all {world} workers returned "
+          f"their results ({len(results)} did; exit codes {[p.exitcode for p in procs]})")
+    return results
+
+
+def all_gpu_lines() -> list:
+    """nvidia-smi's name and power limit of every card."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30).stdout.strip().splitlines()
+    except (OSError, subprocess.SubprocessError) as exc:
+        return [f"nvidia-smi unavailable ({exc})"]
+
+
+def phase_sharded4(device, fits: dict = None, timed: dict = None, world: int = SHARD4_WORLD,
+                   rehearse: bool = False) -> dict:
+    """Phase 24 (run only when listed): the sharded fit across SHARD4_WORLD
+    cards, one NCCL rank a card, every collective between cards (halo rows
+    and planes, the spectral CG's all_to_alls, the group sums, the
+    partition solve's all_gather, the fold axis's sub-groups and its
+    all_gather).  With fewer cards its first check fails (never skipped).
+    The witnesses first, on card 0 as a group of one NCCL rank (the same
+    data, grid and caps): each fit of SHARD4_FITS with its own witness, and
+    SHARD4_TIMED's iterations on one rank; then the workers (shard4_workers)
+    run every fit and SHARD4_TIMED on 4 ranks.  Checks (SHARD4_OBJ, ...):
+    each fit against its witness, every rank's model the same (a digest of
+    its arrays), B8s and B9s launched in (a), B12s and B13s in (b) and the
+    slab matvec under xla_packed=False, T1's segment mode and
+    partition_finish in (c) and T1 on the whole chain not, the pencil
+    transposes in (a) and (b)'s default arm, the backend NCCL.  Prints
+    every fit's wall time beside its witness's, and for (a)-(c) ms per
+    iteration, idle share (the non-NCCL kernels against the CUDA-event
+    time), NCCL ms per iteration and launches per kernel and iteration on
+    4 ranks against 1.  Returns the workers' launches on
+    the fits, summed over the ranks."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from multivartv_tpu_torch.parallel import distributed
+    from multivartv_tpu_torch.parallel.sharding import make_device_mesh
+
+    fits = SHARD4_FITS if fits is None else fits
+    timed = SHARD4_TIMED if timed is None else timed
+    log(f"phase 24: the sharded fit across {world} cards (one NCCL rank a card)")
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count() if not rehearse else world
+    lines = all_gpu_lines()
+    for i, line in enumerate(lines):
+        log(f"  card {i}: {line}")
+    if not check(cards >= world, f"phase 24 needs {world} cards: this machine has {cards}"):
+        return {}
+    log(f"phase 24: the collectives on {world} ranks (a first spawn, before the witnesses)")
+    probe = shard4_workers({}, {}, world, rehearse)
+    if len(probe) != world:
+        return {}
+    for r in sorted(probe):
+        errs = probe[r]["collectives"]
+        check(probe[r]["backend"] == ("gloo" if rehearse else "nccl")
+              and all(v == 0.0 for v in errs.values()),
+              f"phase 24 rank {r} on {probe[r]['device']} ({probe[r]['backend']}): each "
+              f"collective of the sharded fit exact on the row and fold groups of a (2, "
+              f"{world // 2}, 1) mesh {errs}")
+    for name, (ms, host_us) in probe[0]["latency"].items():
+        log(f"  {name}: {ms:.4f} ms per call (CUDA events, rank 0), host {host_us:.1f} us per "
+            f"call [{GPU_LINE}]")
+    log("phase 24: the witnesses on card 0, a group of one NCCL rank")
+    wit, wit_timed = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.init_distributed(f"file://{tmp}/store", world_size=1, rank=0, device=device)
+        try:
+            for label, spec in fits.items():
+                if spec[7] is None:
+                    wit[label] = shard4_fit(label, spec, device)
+                    w = wit[label]
+                    log(f"  witness {label}: {w['seconds']:.2f} s [{GPU_LINE}], chosen index "
+                        f"{w['best']}, iterations per lambda {w['iters']}, MSEs "
+                        f"{[float(f'{v:.8g}') for v in w['cv_mses']]}")
+                torch.cuda.empty_cache()
+            group = make_device_mesh()
+            for label, (name, lam) in timed.items():
+                wit_timed[label] = shard4_iterations(label, fits[name], lam, device, group)
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"phase 24: {world} workers, one card each (spawned) [{time.perf_counter() - t_phase:.1f}"
+        f" s into the phase]")
+    res = shard4_workers(fits, timed, world, rehearse)
+    if len(res) != world:
+        return {}
+    r0 = res[0]
+    check(all(r["backend"] == ("gloo" if rehearse else "nccl") and r["all_reduce"] == world
+              for r in res.values()),
+          f"phase 24: every rank on its own device ({[r['device'] for r in res.values()]}) in "
+          f"one {r0['backend']} world of {world} (an all_reduce of ones gave {r0['all_reduce']})")
+
+    log("phase 24: the fits on 4 ranks against their witnesses on one")
+    for label, spec in fits.items():
+        got = r0["fits"][label]
+        digests = {r["fits"][label]["digest"] for r in res.values()}
+        check(len(digests) == 1 and all(r["fits"][label]["finite"] for r in res.values()),
+              f"{label}: every rank returned the same model, finite ({len(digests)} digests)")
+        if got["oty"] is not None:
+            n_oty = len({r["fits"][label]["oty"] for r in res.values()})
+            log(f"  {label}: O'y as each rank bins it, {n_oty} distinct digests over the "
+                f"{world} ranks")
+        ref_label = spec[7] or label
+        ref = wit.get(ref_label) if spec[7] is None else r0["fits"][ref_label]
+        log(f"  {label} on {spec[6]}: {got['seconds']:.2f} s against the witness's "
+            f"{wit[ref_label]['seconds']:.2f} s [{', '.join(sorted(set(lines)))}]; chosen index "
+            f"{got['best']}, iterations per lambda {got['iters']}, launches {got['launches']}, "
+            f"pencil transposes {got['moves']}")
+        if spec[3] > 1:
+            continue
+        lam_err = float(np.max(np.abs(got["lambdas"] - ref["lambdas"]) / ref["lambdas"]))
+        mse_err = float(np.max(np.abs(got["cv_mses"] - ref["cv_mses"]) / ref["cv_mses"]))
+        obj = [(a - b) / abs(b) for a, b in zip(got["objective"], ref["objective"])]
+        log(f"  {label}: lambdas {lam_err:.3e}, MSEs {mse_err:.3e} relative; objective (4 ranks "
+            f"- 1) / |1| per lambda {[f'{v:+.3e}' for v in obj]}")
+        check(lam_err <= 1e-5 and mse_err <= 1e-4 and got["best"] == ref["best"],
+              f"{label}: the lambda grid within 1e-5 ({lam_err:.3e}), the MSEs within 1e-4 "
+              f"({mse_err:.3e}) and the chosen index ({got['best']} vs {ref['best']}) of the "
+              "group of one")
+        at = obj if not label.startswith("(c)") else [obj[ref["best"]]]
+        check(all(abs(v) <= SHARD4_OBJ for v in at),
+              f"{label}: objective {'at every lambda' if len(at) > 1 else 'at the chosen lambda'}"
+              f" within {SHARD4_OBJ:g} relative of the group of one "
+              f"({max(abs(v) for v in at):.3e})")
+
+    def used(label, k):
+        return sum(r["fits"][label]["launches"].get(k, 0) for r in res.values())
+
+    a, b, bx, c = list(fits)[:4]
+    for k in ("dual_update_tiled_2d_shard", "gram_residual_tiled_2d_shard"):
+        check(used(a, k) > 0, f"{a}: {k} launched on 4 cards with halos from their neighbours "
+              f"({used(a, k)} in all)")
+    for k in ("dual_update_tiled_3d_shard", "gram_residual_tiled_3d_shard"):
+        check(used(b, k) > 0 and used(bx, k) > 0, f"{b}: {k} launched on plane slabs of "
+              f"{fits[b][1][0] // world} ({used(b, k)} default arm, {used(bx, k)} "
+              "xla_packed=False)")
+    check(used(bx, "gram_matvec_tiled_3d_shard") > 0, f"{bx}: the slab matvec launched "
+          f"({used(bx, 'gram_matvec_tiled_3d_shard')})")
+    for label in (a, b):
+        n_moves = sum(r["fits"][label]["moves"]["to_pencils"] for r in res.values())
+        check(n_moves > 0, f"{label}: the spectral CG's pencil transposes ran across the ranks "
+              f"({n_moves} to_pencils calls, each an all_to_all on {r0['backend']})")
+    seg, fin, whole = (used(c, k) for k in ("xupdate_tridiag_segment", "partition_finish",
+                                            "xupdate_tridiag"))
+    check(seg > 0 and fin > 0 and whole == 0,
+          f"{c}: T1's segment mode ({seg}) and partition_finish ({fin}) launched on 4 cards, "
+          f"T1 on the whole chain not ({whole})")
+
+    d, e = list(fits)[4:6]
+    wd = wit[d]
+    per_d = {f: mse for r in res.values() for f, mse in zip(r["fits"][d]["folds"],
+                                                             r["fits"][d]["fold_mse"])}
+    per_e = {f: mse for r in res.values() for f, mse in zip(r["fits"][e]["folds"],
+                                                             r["fits"][e]["fold_mse"])}
+    folds = fits[d][3]
+    if check(sorted(per_d) == list(range(folds)) and sorted(per_e) == list(range(folds)),
+             f"{d}, {e}: every fold solved on one row group (folds {sorted(per_d)}, "
+             f"{sorted(per_e)})"):
+        dd = max(float(np.max(np.abs(per_d[f] - wd["fold_mse"][f]) / wd["fold_mse"][f]))
+                 for f in range(folds))
+        de = max(float(np.max(np.abs(per_e[f] - per_d[f]) / per_d[f])) for f in range(folds))
+        lam = float(np.max(np.abs(r0["fits"][d]["lambdas"] - wd["lambdas"]) / wd["lambdas"]))
+        log(f"  {d}: per-fold held-out MSEs against the group of one's fold solves: max "
+            f"relative difference {dd:.3e} (lambda grids {lam:.3e} apart); {e} against {d}: "
+            f"{de:.3e}")
+        check(dd <= SHARD4_FOLD and r0["fits"][d]["best"] == wd["best"],
+              f"{d}: each fold's MSEs within {SHARD4_FOLD:g} of the group of one's ({dd:.3e}), "
+              f"the chosen index {r0['fits'][d]['best']} its {wd['best']}")
+        cvd = r0["fits"][d]["cv_mses"]
+        ties = np.nonzero(cvd <= cvd.min() * (1 + MVTV_TIE))[0].tolist()
+        check(de <= SHARD4_FOLD_E and r0["fits"][e]["best"] in ties,
+              f"{e}: each fold's MSEs within {SHARD4_FOLD_E:g} of {d}'s ({de:.3e}), the chosen "
+              f"index {r0['fits'][e]['best']} in its tie set {ties}")
+
+    log(f"phase 24: ms per iteration on {world} ranks against 1 ({SHARD_ARM_ITERS} "
+        "admm_fixed_iterations from one warm state)")
+    for label in timed:
+        one, four = wit_timed[label], r0["timed"][label]
+        every = [f"{res[r]['timed'][label]['ms']:.3f}" for r in sorted(res)]
+        log(f"  {label}: {four['ms']:.3f} ms per iteration on {world} ranks (each rank "
+            f"{every}) against {one['ms']:.3f} on 1 (speed-up {one['ms'] / four['ms']:.2f}x); "
+            f"per iteration (torch.profiler, rank 0; unions of kernel intervals): the compute "
+            f"(every kernel but NCCL's) {four['compute']:.3f} against {one['compute']:.3f} ms, "
+            f"idle share (1 - compute / ms) {four['idle']:.3f} against {one['idle']:.3f}; NCCL "
+            f"kernels (transfers and spin-waits) {four['nccl']:.3f} ms, all kernels "
+            f"{four['busy']:.3f} against {one['busy']:.3f} ms [{', '.join(sorted(set(lines)))}]")
+        log(f"  {label} launches per iteration, 4 ranks (rank 0): "
+            f"{ {k: round(v, 2) for k, v in four['launches'].items()} }; 1 rank: "
+            f"{ {k: round(v, 2) for k, v in one['launches'].items()} }")
+        log(f"  {label} summed kernel ms per iteration by group, 4 ranks (rank 0): "
+            f"{ {k: round(v, 4) for k, v in four['groups'].items()} }; 1 rank: "
+            f"{ {k: round(v, 4) for k, v in one['groups'].items()} }")
+    log(f"phase 24: {time.perf_counter() - t_phase:.1f} s")
+    total = {}
+    for r in res.values():
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 SOURCES = {
     "dual_update_2d": ("multivartv_tpu_torch/csrc/dual.cu",
                        "multivartv_tpu/ops/pallas_kernels.py:262"),
@@ -5189,7 +5843,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,12,13,15,16,17,20,21,22,23",
                     help="comma-separated phases to run (default: 1-10, 12, 13, 15-17, 20-23; "
-                    "11, 14, 18 and 19 only when listed)")
+                    "11, 14, 18, 19 and 24 only when listed; 24 needs four cards)")
     phases = {int(v) for v in ap.parse_args(argv).phases.split(",")}
     phase_device()
     import torch
@@ -5251,6 +5905,10 @@ def main(argv=None) -> int:
         launches_s3, times_s3 = phase_sharded3(device, errs)
         launches = {k: launches.get(k, 0) + launches_s3[k] for k in launches_s3}
         timed.update(times_s3)
+    if 24 in phases:
+        launches_s4 = phase_sharded4(device)
+        launches = {k: launches.get(k, 0) + launches_s4.get(k, 0)
+                    for k in set(launches) | set(launches_s4)}
     if 8 in phases:
         phase_mvtv_default(device)
     if 11 in phases:

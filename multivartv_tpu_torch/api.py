@@ -201,17 +201,34 @@ def _fit_configs(n_lambda: int, folds: int, path_config: Optional[PathConfig],
     return path_config, cv_config
 
 
-class LatticeCut(NamedTuple):
-    """How a fit lays its lattice over processes once its lambda grid is
-    set: the problem of its own part (each CV fold's, as it is built), and
-    a lattice array whole from its part, a leading lambda axis kept
-    (parallel/fit.py gathers it to the host one lambda at a time)."""
-    problem: Callable
-    gather: Callable
-
-
 def _same(x):
     return x
+
+
+def _mean_mse(res: cv_lib.CVResult) -> torch.Tensor:
+    return res.mean_mse
+
+
+def _as_computed(final_path, best_theta, best_fitted):
+    return final_path, best_theta, best_fitted
+
+
+class LatticeCut(NamedTuple):
+    """How a fit lays its lattice and its CV folds over processes once its
+    lambda grid is set: the problem of its own part (each CV fold's, as it
+    is built); a lattice array whole from its part, a leading lambda axis
+    kept (parallel/fit.py gathers it to the host one lambda at a time); the
+    folds this process solves, of k; the CV curve (n_lambda,) from the
+    CVResult of those folds (parallel/fit.py gathers every fold's held-out
+    MSEs over the fold axis before the mean); and the final path and refit
+    that this process returns, from the (final path, best theta, best
+    fitted) it computed (parallel/fit.py takes the first replica's over the
+    fold axis, where every row group computes them)."""
+    problem: Callable
+    gather: Callable
+    folds: Callable = range
+    cv_mean: Callable = _mean_mse
+    replica: Callable = _as_computed
 
 
 WHOLE = LatticeCut(_same, _same)
@@ -241,8 +258,9 @@ def _cross_validated_fit(samples, ops, problem, grid, cut: LatticeCut, ftrue, ve
     and the refit on ops and problem, the whole lattice's or one part's
     (parallel/fit.py cuts them into slabs; the folds then run one after
     another, cv_config.vmap_folds False, each fold's problem cut as it is
-    built).  samples: _setup's (data, y as float64 host arrays, mesh spec,
-    data, y on the device)."""
+    built, and on a mesh with a fold axis each row group solves its block
+    of folds, cut.folds).  samples: _setup's (data, y as float64 host
+    arrays, mesh spec, data, y on the device)."""
     data_np, y_np, spec, data_t, y_t = samples
     ftrue_t = (y_t if ftrue is None
                else torch.as_tensor(np.asarray(ftrue, np.float64), dtype=torch.float32,
@@ -259,10 +277,11 @@ def _cross_validated_fit(samples, ops, problem, grid, cut: LatticeCut, ftrue, ve
                                                solver_config)
     else:
         labels = cv_lib.kfold_indices(y_np.shape[0], folds, cv_config.seed)
-        problems = cv_lib.fold_problems(spec, data_t, y_t, labels, folds, fold_map=cut.problem)
+        problems = cv_lib.fold_problems(spec, data_t, y_t, labels, folds, fold_map=cut.problem,
+                                        fold_ids=cut.folds(folds))
         res = cv_lib.cross_validate(ops, problems, grid, solver_config, path_config, cv_config)
         del problems
-        cv_mses = res.mean_mse.cpu().numpy()
+        cv_mses = cut.cv_mean(res).cpu().numpy()
         best = int(np.argmin(cv_mses))
         final_path = path_lib.solve_path(ops, problem, grid, solver_config, path_config,
                                          ftrue=ftrue_t, progress=verbose)
@@ -271,6 +290,7 @@ def _cross_validated_fit(samples, ops, problem, grid, cut: LatticeCut, ftrue, ve
         else:
             best_theta, best_fitted = _fresh_solve(ops, problem, grid[best], grid[0] / 5.0,
                                                    solver_config)
+    final_path, best_theta, best_fitted = cut.replica(final_path, best_theta, best_fitted)
     if verbose:
         print(f"Best lambda = {float(grid[best]):.6g}")
     if final_path.thetas is not None:

@@ -150,6 +150,7 @@ class MeshConfig:
 
 DEFAULT_SOLVER = SolverConfig()
 DEFAULT_PATH = PathConfig()
+DEFAULT_CV = CVConfig()
 DEFAULT_MESH = MeshConfig()
 
 

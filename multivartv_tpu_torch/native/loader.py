@@ -1,7 +1,9 @@
-"""Build and load the host kd-tree (``native/nearest.cpp``) with ctypes.
+"""Build and load the host kd-tree and binning (``native/nearest.cpp``) with ctypes.
 
-Counterpart of ``multivartv_tpu/native/loader.py``'s nearest-neighbour
-entry points.  The library is compiled by g++ at first use, never at
+Counterpart of ``multivartv_tpu/native/loader.py``: the nearest-neighbour
+searches, the closed-form binning of a regular lattice (``bin_regular``,
+exported as the JAX package exports it; the port bins on the device) and
+``available``.  The library is compiled by g++ at first use, never at
 import, into ``multivartv_tpu_torch/_build/native-<hash>/``, keyed by a
 hash of the source and the flags:
 
@@ -71,8 +73,21 @@ def load() -> ctypes.CDLL:
             for fn in (lib.mvtv_nearest_kdtree, lib.mvtv_nearest_brute):
                 fn.argtypes = [pd, ctypes.c_int64, pd, ctypes.c_int64, ctypes.c_int32, pi]
                 fn.restype = ctypes.c_int
+            pl = ctypes.POINTER(ctypes.c_int64)
+            lib.mvtv_bin_regular.argtypes = [pd, ctypes.c_int64, ctypes.c_int32, pd, pd, pl, pl]
+            lib.mvtv_bin_regular.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def available() -> bool:
+    """Whether the library builds and loads here (the entry points raise
+    where it does not)."""
+    try:
+        load()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def _nearest(name: str, data, mesh) -> np.ndarray:
@@ -103,3 +118,30 @@ def nearest_kdtree(data, mesh) -> np.ndarray:
 def nearest_brute(data, mesh) -> np.ndarray:
     """nearest_kdtree by the reference's exact scan."""
     return _nearest("mvtv_nearest_brute", data, mesh)
+
+
+def bin_regular(data, knot0, spacing, dims) -> np.ndarray:
+    """The C-order flat index of every data row's nearest knot on a regular
+    lattice, int64 (n,), in float64: knot0 and spacing per axis (an axis
+    of one knot, or spacing 0, bins to index 0), dims the lattice's m;
+    ties at a midpoint to the lower index, indices clipped to the
+    lattice (the JAX package's ``native.bin_regular``)."""
+    data = np.ascontiguousarray(data, dtype=np.float64)
+    if data.ndim == 1:
+        data = data[:, None]
+    n, p = data.shape
+    knot0 = np.ascontiguousarray(knot0, dtype=np.float64).reshape(-1)
+    spacing = np.asarray(spacing, np.float64).reshape(-1)
+    dims = np.ascontiguousarray(dims, dtype=np.int64).reshape(-1)
+    if not knot0.shape == spacing.shape == dims.shape == (p,):
+        raise ValueError(f"data has {p} columns; knot0 {knot0.shape}, spacing "
+                         f"{spacing.shape} and dims {dims.shape} must have one entry each")
+    inv_h = np.divide(1.0, spacing, out=np.zeros_like(spacing), where=spacing > 0)
+    out = np.empty(n, np.int64)
+    pd, pl = ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int64)
+    rc = load().mvtv_bin_regular(data.ctypes.data_as(pd), n, p, knot0.ctypes.data_as(pd),
+                                 inv_h.ctypes.data_as(pd), dims.ctypes.data_as(pl),
+                                 out.ctypes.data_as(pl))
+    if rc != 0:
+        raise ValueError(f"mvtv_bin_regular refused its inputs (data {data.shape})")
+    return out

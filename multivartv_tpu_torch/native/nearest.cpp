@@ -1,4 +1,5 @@
-// Nearest-neighbour knot assignment on the host, for point-cloud meshes.
+// Nearest-neighbour knot assignment on the host, for point-cloud meshes,
+// and the closed-form binning of a regular lattice.
 //
 // The port's own copy of the kd-tree and brute-force scans of the repo's
 // native/mvtv_native.cpp, built by multivartv_tpu_torch/native/loader.py
@@ -10,7 +11,10 @@
 //     it replaces the reference's O(n * ntheta * p) scan
 //     (nearest1, utils.cpp:280-287).  Ties go to the lowest row index, as
 //     the reference's index_min does (utils.cpp:275);
-//   * mvtv_nearest_brute: that exact scan, for validation.
+//   * mvtv_nearest_brute: that exact scan, for validation;
+//   * mvtv_bin_regular: the closed-form nearest knot of a regular lattice
+//     (a C-order flat index), the JAX package's native binning; on no path
+//     of the port, which bins on the device (mesh.py).
 //
 // ABI: plain C, loaded with ctypes.
 
@@ -188,6 +192,38 @@ int mvtv_nearest_brute(const double* data, int64_t n, const double* mesh,
             }
         }
         out[i] = best_i;
+    }
+    return 0;
+}
+
+// Closed-form regular-lattice binning, C-order flat index.
+// knot0[j], inv_h[j]: first knot and 1/spacing per axis; dims[j]: m_j.
+// A tie at a midpoint goes to the lower index (frac > 0.5 strictly to
+// round up); indices are clipped to the lattice.
+int mvtv_bin_regular(const double* data, int64_t n, int32_t p, const double* knot0,
+                     const double* inv_h, const int64_t* dims, int64_t* out) {
+    if (n < 0 || p <= 0) return 1;
+    std::vector<int64_t> strides(p);
+    strides[p - 1] = 1;
+    for (int32_t j = p - 2; j >= 0; --j)
+        strides[j] = strides[j + 1] * dims[j + 1];
+#ifdef _OPENMP
+#pragma omp parallel for schedule(static)
+#endif
+    for (int64_t i = 0; i < n; ++i) {
+        const double* q = data + (size_t)i * p;
+        int64_t flat = 0;
+        for (int32_t j = 0; j < p; ++j) {
+            int64_t idx = 0;
+            if (dims[j] > 1) {
+                double t = (q[j] - knot0[j]) * inv_h[j];
+                double fl = std::floor(t);
+                idx = (int64_t)fl + ((t - fl) > 0.5 ? 1 : 0);
+                idx = std::max((int64_t)0, std::min(dims[j] - 1, idx));
+            }
+            flat += idx * strides[j];
+        }
+        out[i] = flat;
     }
     return 0;
 }

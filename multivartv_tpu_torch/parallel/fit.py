@@ -19,21 +19,28 @@ transforms (parallel/halo.py): the spectral-correction CG across ranks
 (parallel/spectral.py) by default, as the JAX package runs it on a TPU,
 and the natural-domain bf16 PCG and the exact float32 PCG under
 SolverConfig(spectral_cg=False) and (xla_packed=False).  2-D process grids
-and the fold axis dp raise NotImplementedError (ROADMAP A11).
+raise NotImplementedError (ROADMAP A11).
 
 Set-up is whole on every rank, and then dropped: each rank bins all the
 data, builds the global operators and takes lambda_max (float64) from the
-whole problem; rank 0's lambda grid is broadcast so that every rank solves
-the same path.  Then each rank cuts its slab of the operators and the
-problem and keeps no reference to the whole ones (the JAX package rebinds
-them to their sharded placements, fit.py:325-326); each CV fold's problem
-is cut as it is built, so one whole fold problem exists at a time.  The
-CV folds run one after another through the sharded single-problem route,
-as ``CVConfig(vmap_folds=False)`` does; the JAX package's fold batch axis
-"dp" is not ported.  The path's thetas and the chosen one go to the host
-one lambda at a time (halo.gather_rows_to_host), so after the cut no rank
-holds a lattice-sized array on its device, and every rank returns the
-same ``MVTVModel``.
+whole problem; global rank 0's lambda grid is broadcast over the whole mesh
+so that every rank solves the same path.  Then each rank cuts its slab of
+the operators and the problem and keeps no reference to the whole ones (the
+JAX package rebinds them to their sharded placements, fit.py:325-326); each
+CV fold's problem is cut as it is built, so one whole fold problem exists
+at a time.  The CV folds run one after another through the sharded
+single-problem route, as ``CVConfig(vmap_folds=False)`` does.  On a (dp,
+sx, 1) mesh (parallel/sharding.py::make_device_mesh) the folds are split in blocks
+over the fold axis "dp", as the JAX package shards its fold batch over that
+axis (fold f on dp index f // (folds / dp)): each row group builds and
+solves only its block, and the per-fold held-out MSEs come together on
+every rank by an all_gather over the fold group, in fold order, before
+their mean; the final path and the refit run on every row group, as the JAX
+package replicates them over dp, and every rank returns dp index 0's, as
+the JAX package's host reads one replica.  The path's thetas and the chosen
+one go to the host one lambda at a time (halo.gather_rows_to_host), so
+after the cut no rank holds a lattice-sized array on its device, and every
+rank returns the same ``MVTVModel``.
 """
 
 from __future__ import annotations
@@ -53,18 +60,19 @@ from multivartv_tpu_torch.utils.logging import get_logger
 
 
 def default_lattice_mesh(p: int, dp: int = 1, group=None) -> Tuple[RowGroup, Tuple[str, ...]]:
-    """(row group, axis names): every rank of the group (None: the default
-    one) on the axis "sx" of a (dp, sx) mesh at p = 1 (the JAX package's
-    sequence-parallel layout) or a (dp, sx, sy) mesh with sy = 1 at p >= 2.
-    The JAX package factors its devices over sx and sy; the port cuts axis
-    0 only, and its fold axis dp is 1."""
-    if dp != 1:
-        raise NotImplementedError("the fold axis dp is not ported: the folds run one after "
-                                  "another (ROADMAP A11)")
-    names = ("dp", "sx") if p == 1 else ("dp", "sx", "sy")
+    """(row group, axis names): the ranks of the group (None: the default
+    one) on a (dp, sx) mesh at p = 1 (the JAX package's sequence-parallel
+    layout) or a (dp, sx, sy) mesh with sy = 1 at p >= 2, sx = ranks / dp
+    (make_device_mesh).  The JAX package factors its devices over sx and
+    sy; the port cuts axis 0 only.  A world that dp does not divide raises
+    ValueError, as the JAX package's reshape of its devices does."""
     import torch.distributed as dist
     size = dist.get_world_size(group) if dist.is_available() and dist.is_initialized() else 1
-    return make_device_mesh((size,), ("sx",), group=group), names
+    if dp < 1 or size % dp:
+        raise ValueError(f"the fold axis dp = {dp} does not divide the {size} ranks")
+    shape = (dp, size // dp) if p == 1 else (dp, size // dp, 1)
+    names = ("dp", "sx") if p == 1 else ("dp", "sx", "sy")
+    return make_device_mesh(shape, names, group=group), names
 
 
 def _sharded_solver_config(cfg: SolverConfig, device_mesh: Optional[RowGroup] = None,
@@ -130,7 +138,7 @@ def shard_operators(ops: Operators, slab: RowSlab) -> Operators:
 
 
 def _broadcast(x: torch.Tensor, grp: RowGroup) -> torch.Tensor:
-    """Rank 0's x on every rank of the group."""
+    """The group's rank 0's x on every rank of the group."""
     if grp.size == 1:
         return x
     import torch.distributed as dist
@@ -156,8 +164,13 @@ def mvtv_sharded(data, y, m=None, mesh=None, n_lambda: int = 100, ftrue=None, la
         process alone).  Each rank's device is ``device`` (with NCCL, one card
         per rank: pass "cuda:<rank>" or set the current device).
     spatial_axes: mesh-axis names per lattice axis; only axis 0 may be
-        cut.  batch_axis: accepted for the JAX signature; the folds run one
-        after another."""
+        cut.  batch_axis: the mesh axis the CV folds are split over ("dp":
+        device_mesh.fold, a block of folds per row group; folds > 1 must be
+        a multiple of its size, else ValueError, as in the JAX package); None
+        or a mesh without that axis: every row group solves every fold.
+        Within a row group the folds run one after another.  On a mesh
+        whose fold axis has more than one rank every rank returns dp index
+        0's final path and refit, whatever batch_axis is."""
     from multivartv_tpu_torch.api import (LatticeCut, _cross_validated_fit, _fit_configs,
                                           _lambda_grid, _setup)
 
@@ -169,15 +182,42 @@ def mvtv_sharded(data, y, m=None, mesh=None, n_lambda: int = 100, ftrue=None, la
                                                             mesh_config, device)
     if device_mesh is None:
         device_mesh, _ = default_lattice_mesh(len(spec.m))
+    fold = device_mesh.fold if batch_axis == "dp" else None
+    folds = cv_config.folds
+    if fold is not None and folds > 1 and folds % fold.size:
+        raise ValueError(f"{folds} CV folds do not split evenly over the {fold.size} ranks of "
+                         "the fold axis 'dp'")
     solver_config = _sharded_solver_config(solver_config, device_mesh, spatial_axes)
     slab = RowSlab(device_mesh, spec.m)
     grid, path_config = _lambda_grid(ops, problem, lambdas, path_config, verbose,
-                                     share=lambda g: _broadcast(g, device_mesh))
+                                     share=lambda g: _broadcast(g, device_mesh.world))
     # From here on only this rank's slab of the operators and the problem
     # is alive: rebinding drops the whole ones (shard_operators cuts every
     # lattice-sized operand to the rank's slab or pencil).
     ops, problem = shard_operators(ops, slab), shard_problem(problem, slab)
     cut = LatticeCut(problem=lambda pr: shard_problem(pr, slab),
                      gather=lambda t: halo.gather_rows_to_host(t, slab))
+    replicas = device_mesh.fold
+    if replicas is not None and replicas.size > 1:
+        def replica(final_path, best_theta, best_fitted):
+            """The final path and refit of dp index 0 on every rank: each row
+            group computes them (the JAX package's replicas over dp), and
+            on the card the replicas can differ in their last bits (each
+            row group bins O'y by atomic adds of its own); JAX's host reads
+            one replica."""
+            mse, iters, thetas, fitted, theta, best_f = halo.broadcast_each(
+                (final_path.train_mse, final_path.iters, final_path.thetas, final_path.fitted,
+                 best_theta, best_fitted), replicas)
+            return (final_path._replace(train_mse=mse, iters=iters, thetas=thetas,
+                                        fitted=fitted), theta, best_f)
+
+        cut = cut._replace(replica=replica)
+    if fold is not None and fold.size > 1:
+        def block(k):
+            per = k // fold.size
+            return range(fold.rank * per, (fold.rank + 1) * per)
+
+        cut = cut._replace(folds=block, cv_mean=lambda res: torch.mean(
+            halo.gather_folds(res.fold_test_mse, fold), dim=0))
     return _cross_validated_fit((data_np, y_np, spec, data_t, y_t), ops, problem, grid, cut,
                                 ftrue, verbose, solver_config, path_config, cv_config)

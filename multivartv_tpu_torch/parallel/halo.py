@@ -21,8 +21,11 @@ sharded fit lives in this module, on ``torch.distributed``:
     1 .. p - 1 on the slabs and along axis 0 on the pencils, slabs of axis
     1 with every other axis whole;
   * ``gather_rows`` (every rank gets the whole lattice), its host form
-    ``gather_rows_to_host`` (the fit's thetas, one lambda at a time) and
-    ``gather_fitted`` (every rank gets every sample's fitted value).
+    ``gather_rows_to_host`` (the fit's thetas, one lambda at a time),
+    ``gather_fitted`` (every rank gets every sample's fitted value),
+    ``gather_folds`` (every rank gets every CV fold's held-out MSEs from
+    the fold axis "dp") and ``broadcast_each`` (the fold axis's first
+    replica of the final path on every rank).
 
 A group of size 1 makes no call.  The stencils of the operator D on the
 slabs (``slab_apply_D``, ``slab_apply_Dt``; any p and block set) exchange
@@ -208,6 +211,36 @@ def to_slabs(xs: Sequence[torch.Tensor], grp: RowGroup, rows: Sequence[int],
     parts = [blk.view((rows[me], len(xs), c) + tail)
              for blk, c in zip(out.split([rows[me] * c * rest for c in cols]), cols)]
     return list(torch.cat(parts, dim=2).unbind(1))
+
+
+def gather_folds(x: torch.Tensor, grp: RowGroup) -> torch.Tensor:
+    """The ranks' blocks x (k, ...) of a fold axis, concatenated along axis 0
+    in rank order on every rank of the group (the fold group of
+    make_device_mesh: rank d holds folds d k .. (d + 1) k - 1)."""
+    if grp.size == 1:
+        return x
+    x = x.contiguous()
+    out = [torch.empty_like(x) for _ in range(grp.size)]
+    dist.all_gather(out, x, group=grp.group)
+    return torch.cat(out)
+
+
+def broadcast_each(xs: Sequence, grp: RowGroup) -> List:
+    """Each tensor of xs (None stays None) as the group's rank 0 holds it,
+    on every rank of the group (new tensors; a host tensor goes through
+    the device of the first device tensor of xs, for NCCL)."""
+    if grp.size == 1:
+        return list(xs)
+    dev = next((x.device for x in xs if x is not None and x.device.type != "cpu"), None)
+    out = []
+    for x in xs:
+        if x is None:
+            out.append(None)
+            continue
+        t = x.to(dev).contiguous().clone() if dev is not None else x.contiguous().clone()
+        dist.broadcast(t, src=grp.peer(0), group=grp.group)
+        out.append(t.to(x.device))
+    return out
 
 
 def gather_fitted(theta: torch.Tensor, flat_idx: torch.Tensor, slab: RowSlab) -> torch.Tensor:

@@ -15,7 +15,11 @@ regime, fit.py:52-72).
   * ``RowGroup``: a torch.distributed process group (None: the default
     group) whose ranks each hold one row slab; the counterpart of a mesh
     with one lattice axis.  A group of size 1 needs no initialized process
-    group and makes no collective call.
+    group and makes no collective call.  On a (dp, sx, 1) mesh
+    (``make_device_mesh``) each rank's row group is the sx ranks of its
+    index along the fold axis "dp", and it carries its fold group (the dp
+    ranks of its index along sx, which split the CV folds between them)
+    and the whole mesh's group.
   * ``RowSlab``: the layout of one lattice of dims m (any p >= 1) over a
     row group.  Axes 0 and 1 are split as evenly as ``np.array_split``
     splits them; a rank's slab is indices [row_off, row_off + rows) of
@@ -53,6 +57,14 @@ class RowGroup:
     size: int
     group: Optional[object] = None
     axis_name: str = "sx"
+    fold: Optional["RowGroup"] = None
+    mesh: Optional["RowGroup"] = None
+
+    @property
+    def world(self) -> "RowGroup":
+        """Every rank of the mesh: this group when the fold axis has size 1,
+        else the dp x sx ranks of ``mesh``."""
+        return self if self.mesh is None else self.mesh
 
     def peer(self, r: int) -> int:
         """The global rank of this group's rank r (point-to-point calls
@@ -122,11 +134,21 @@ class RowSlab:
 
 def make_device_mesh(shape: Sequence[int] = None, axis_names: Sequence[str] = ("sx",),
                      group=None) -> RowGroup:
-    """A row group over a torch.distributed group (None: the default one;
-    without an initialized process group, this one process).  shape: the
-    JAX mesh shape it stands for; every axis but the row axis, the first
-    one of size > 1, must have size 1 (2-D process grids are ROADMAP
-    work)."""
+    """This rank's row group over a torch.distributed group (None: the
+    default one; without an initialized process group, this one process).
+    shape: the JAX mesh shape it stands for.  An axis named "dp" is the
+    fold axis; of the others (the spatial axes) only one may have size > 1,
+    the row axis (2-D process grids are ROADMAP work).  With dp > 1 rank r
+    of the group has dp index r // sx and sx index r % sx (the row-major
+    order of the JAX package's reshape of its device list); the returned
+    row group holds the sx ranks of its dp index and carries its fold group
+    (``RowGroup.fold``: the dp ranks of its sx index) and the whole group
+    (``RowGroup.mesh``).  Every rank of the group creates every sub-group
+    with dist.new_group, in one order, so every rank of the group calls
+    this with the same shape.  dist.new_group names a group by a count kept
+    in each process: with `group` a sub-group of the default one, a rank
+    outside it that later creates a process group with its ranks must have
+    created as many before."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
@@ -137,18 +159,46 @@ def make_device_mesh(shape: Sequence[int] = None, axis_names: Sequence[str] = ("
     else:
         rank, size = 0, 1
     axis = axis_names[0] if axis_names else "sx"
-    if shape is not None:
-        shape = tuple(int(v) for v in shape)
-        if int(np.prod(shape)) != size:
-            raise ValueError(f"mesh shape {shape} needs {int(np.prod(shape))} ranks, the group "
-                             f"has {size}")
-        big = [(n, a) for n, a in zip(shape, axis_names) if n > 1]
-        if len(big) > 1:
-            raise NotImplementedError(f"mesh shape {shape}: the port cuts lattices into row "
-                                      "slabs over one mesh axis only")
-        if big:
-            axis = big[0][1]
-    return RowGroup(rank=rank, size=size, group=group, axis_name=axis)
+    if shape is None:
+        return RowGroup(rank=rank, size=size, group=group, axis_name=axis)
+    shape = tuple(int(v) for v in shape)
+    if int(np.prod(shape)) != size:
+        raise ValueError(f"mesh shape {shape} needs {int(np.prod(shape))} ranks, the group "
+                         f"has {size}")
+    axes = dict(zip(axis_names, shape))
+    dp = axes.get("dp", 1)
+    spatial = [(n, a) for a, n in axes.items() if a != "dp"]
+    big = [(n, a) for n, a in spatial if n > 1]
+    if len(big) > 1:
+        raise NotImplementedError(f"mesh shape {shape}: the port cuts lattices into row "
+                                  "slabs over one spatial mesh axis only (2-D process grids: "
+                                  "ROADMAP A11)")
+    if big:
+        axis = big[0][1]
+    elif spatial:
+        axis = spatial[0][1]
+    if dp == 1:
+        return RowGroup(rank=rank, size=size, group=group, axis_name=axis)
+    if axis_names[0] != "dp":
+        raise NotImplementedError(f"mesh axes {tuple(axis_names)}: the fold axis dp leads the "
+                                  "mesh (its row-major rank order)")
+    sx = size // dp
+    glob = list(range(size)) if group is None else [dist.get_global_rank(group, r)
+                                                    for r in range(size)]
+    rows = [_sub_group([glob[d * sx + i] for i in range(sx)]) for d in range(dp)]
+    folds = [_sub_group([glob[d * sx + i] for d in range(dp)]) for i in range(sx)]
+    d, i = divmod(rank, sx)
+    return RowGroup(rank=i, size=sx, group=rows[d], axis_name=axis,
+                    fold=RowGroup(rank=d, size=dp, group=folds[i], axis_name="dp"),
+                    mesh=RowGroup(rank=rank, size=size, group=group, axis_name="dp"))
+
+
+def _sub_group(ranks):
+    """A process group over the given global ranks, created by every rank
+    of the mesh in one order; None for a single rank, whose group makes no
+    collective call."""
+    import torch.distributed as dist
+    return None if len(ranks) == 1 else dist.new_group(ranks)
 
 
 def shard_problem(problem: "Problem", slab: RowSlab) -> "Problem":

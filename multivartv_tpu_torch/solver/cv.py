@@ -17,7 +17,7 @@ seed.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,16 +43,20 @@ class CVResult(NamedTuple):
 
 def fold_problems(spec: MeshSpec, data: torch.Tensor, y: torch.Tensor,
                   fold_labels: torch.Tensor, folds: int,
-                  fold_map: Optional[Callable[[Problem], Problem]] = None) -> Problem:
+                  fold_map: Optional[Callable[[Problem], Problem]] = None,
+                  fold_ids: Optional[Sequence[int]] = None) -> Problem:
     """A fold-batched Problem (leading axis fold): fold f trains on the
     samples whose label is not f.  fold_map: applied to each fold's problem
     as it is built, before the next one is (parallel/fit.py cuts it into
-    this rank's slab, so that one whole fold problem exists at a time)."""
+    this rank's slab, so that one whole fold problem exists at a time).
+    fold_ids: the folds to build, in order (None: all `folds`;
+    parallel/fit.py builds a row group's block of the fold axis)."""
     labels = fold_labels.to(y.device)
     keep = (lambda pr: pr) if fold_map is None else fold_map
+    ids = range(folds) if fold_ids is None else fold_ids
     return stack_problems([keep(build_problem(spec, data, y,
                                               train_mask=(labels != f).to(y.dtype)))
-                           for f in range(folds)])
+                           for f in ids])
 
 
 def cross_validate(ops: Operators, problems: Problem, lambdas: torch.Tensor,

@@ -153,6 +153,36 @@ def test_kdtree_ties_and_1d():
     assert loader.nearest_kdtree(data1, mesh1).tolist() == [0, 2, 3, 10]
 
 
+@pytest.mark.parametrize("m", [(9, 13), (5, 4, 7), (1, 6), (12,)])
+def test_bin_regular_matches_the_ports_binning(m):
+    """native.bin_regular (the closed-form regular-lattice binning, float64
+    on the host) against the port's own device binning (mesh.py's
+    nearest_knot_multi_index, C-order flat index) on make_mesh_spec's
+    lattice, as tests/test_native.py holds the JAX package's against its
+    own; samples outside the knots clip to the edge knots, and an axis of
+    one knot bins to 0.  Then the exported surface: available(), and
+    config.DEFAULT_CV, the default CVConfig, equal to the JAX package's."""
+    from multivartv_tpu.config import DEFAULT_CV as JDEFAULT_CV
+    from multivartv_tpu_torch import config, native
+
+    rng = np.random.RandomState(117)
+    data = rng.uniform(-2, 3, (1500, len(m)))
+    spec = mesh_lib.make_mesh_spec(data, m, device="cpu")
+    want = interp.flat_knot_indices(spec, t32(data)).numpy()
+    knot0 = [float(k[0]) for k in spec.knots]
+    spacing = [(float(k[-1]) - float(k[0])) / max(len(k) - 1, 1) for k in spec.knots]
+    got = native.bin_regular(data, knot0, spacing, spec.m)
+    assert got.dtype == np.int64 and np.array_equal(got, want)
+    outside = np.full((2, len(m)), -9.0)
+    outside[1] = 9.0
+    edge = native.bin_regular(outside, knot0, spacing, spec.m)
+    assert edge[0] == 0 and edge[1] == int(np.prod(m)) - 1
+    assert native.available() is True
+    assert config.DEFAULT_CV == config.CVConfig()
+    assert {f: getattr(config.DEFAULT_CV, f) for f in ("folds", "seed", "vmap_folds")} == \
+        {f: getattr(JDEFAULT_CV, f) for f in ("folds", "seed", "vmap_folds")}
+
+
 def jittered(n=400, seed=7):
     """test_api.py's point-cloud case: a 3 x 3 lattice mesh, jittered."""
     rng = np.random.RandomState(seed)

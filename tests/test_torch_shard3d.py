@@ -252,15 +252,24 @@ def test_refusals_name_roadmap():
     """Every p takes the shard route with either block set (C7): the row
     layout of default_lattice_mesh at p = 1 .. 4, and mvtv_sharded fits
     p = 4 and the reduced block set (here on a group of one, 2 lambdas, its
-    solves capped); a 2-D process grid and the fold axis dp still raise
-    NotImplementedError naming ROADMAP, and a chain needs two knots per
-    rank."""
+    solves capped); the fold axis dp fits (a (1, 1, 1) mesh here, its folds
+    on the group of one; dp = 2 on gloo ranks in
+    tests/test_torch_shard_dp.py), and dp = 2 on one rank raises ValueError
+    (dp does not divide the world, as in the JAX package); a 2-D process
+    grid still raises NotImplementedError naming ROADMAP, and a chain needs
+    two knots per rank."""
     from multivartv_tpu_torch.config import SolverConfig
 
     for p in (1, 2, 3, 4):
         group, names = distributed.global_lattice_mesh(p)
         assert group.size == 1 and names[1] == "sx" and len(names) == (2 if p == 1 else 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    group, names = fit.default_lattice_mesh(3, dp=1)
+    assert group.fold is None and group.world is group
+    x, y = _data(M3, seed=2)
+    model = fit.mvtv_sharded(x, y, m=M3, n_lambda=2, folds=2, device="cpu", device_mesh=group,
+                             batch_axis="dp", solver_config=SolverConfig(max_iters=CAP))
+    assert model.cv_mses.shape == (2,) and np.all(np.isfinite(model.cv_mses))
+    with pytest.raises(ValueError, match="divide"):
         fit.default_lattice_mesh(3, dp=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fit._sharded_solver_config(SolverConfig(), RowGroup(rank=0, size=2), ("sy", "sx"))

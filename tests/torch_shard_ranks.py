@@ -75,6 +75,118 @@ def _mvtv_sharded(m, seed, n_lambda, folds, cfg, labels_file=None, gates=None):
             "fitted": model.fitted, "key": np.asarray(model.solver_config.tiled_shard_key)}
 
 
+def _spread(v, group=None):
+    """The largest |v on a rank - v on the group's first rank| over the
+    group (None: the world; v: a float64 vector of one length on every
+    rank)."""
+    import torch.distributed as dist
+    t = torch.as_tensor(v, dtype=torch.float64)
+    every = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(every, t, group=group)
+    return max(float((e - every[0]).abs().max()) for e in every)
+
+
+def _mvtv_mesh(m, seed, n_lambda, folds, cfg, shape, labels_file=None, group=None,
+               batch_axis="dp", gates=None, skew=0.0):
+    """mvtv_sharded on make_device_mesh(shape) over a process group (None:
+    the world), with the axis names of the lattice's p (("dp", "sx") at
+    p = 1, ("dp", "sx", "sy") above); the model as in _mvtv_sharded, the
+    mesh's dp and sx, and how far the model's arrays on any rank of the
+    group are from its first rank's ("spread": 0 when every rank returns
+    the same model).  With folds % dp != 0 the ValueError's message in
+    place of the model.  skew: each rank's whole problem's O'y scaled by
+    1 + skew * its dp index, as if each row group had binned it in its own
+    order (the card's atomic adds), so that the row groups' final paths
+    differ; dp index 0's O'y is left as it is."""
+    import dataclasses
+
+    from multivartv_tpu_torch import api
+    from multivartv_tpu_torch.config import SolverConfig
+    from multivartv_tpu_torch.parallel.fit import mvtv_sharded
+    from multivartv_tpu_torch.parallel.sharding import make_device_mesh
+    from multivartv_tpu_torch.solver import cv
+
+    set_gates(**(gates or {}))
+    x, y = fit_data(m, seed)
+    if labels_file is not None:
+        labels = torch.as_tensor(np.load(labels_file))
+        cv.kfold_indices = lambda n, k, seed: labels
+    names = ("dp", "sx") if len(m) == 1 else ("dp", "sx", "sy")
+    mesh = make_device_mesh(shape, names, group=group)
+    setup = api._setup
+
+    def skewed(*a, **kw):
+        *head, problem = setup(*a, **kw)
+        scale = 1.0 + skew * (0 if mesh.fold is None else mesh.fold.rank)
+        return (*head, dataclasses.replace(problem, oty=problem.oty * scale))
+
+    api._setup = skewed if skew else setup
+    try:
+        model = mvtv_sharded(x, y, m=m, n_lambda=n_lambda, folds=folds, device_mesh=mesh,
+                             batch_axis=batch_axis, solver_config=SolverConfig(**cfg),
+                             device="cpu")
+    except ValueError as exc:
+        return {"raised": np.asarray(str(exc))}
+    finally:
+        api._setup = setup
+    arrays = np.concatenate([np.ravel(a).astype(np.float64) for a in (
+        model.lambdas, model.cv_mses, model.theta_lattice, model.fitted,
+        [model.lambda_minmse_ind])])
+    return {"lambdas": model.lambdas, "cv_mses": model.cv_mses,
+            "best": np.asarray(model.lambda_minmse_ind), "theta": model.theta_lattice,
+            "fitted": model.fitted, "key": np.asarray(model.solver_config.tiled_shard_key),
+            "spread": np.asarray(_spread(arrays, group)),
+            "dp": np.asarray(1 if mesh.fold is None else mesh.fold.size),
+            "sx": np.asarray(mesh.size)}
+
+
+def _fold_collectives(shape):
+    """The fold axis's collectives on make_device_mesh(shape), a (dp, sx, 1)
+    mesh over the world, each rank's values made from its global rank:
+    gather_folds (every fold group's blocks in dp order) and broadcast_each
+    (the fold group's first rank's tensors, None kept, an int64 tensor
+    too); the largest absolute errors, and whether each rank's row and
+    fold groups hold the ranks the mesh's row-major order gives them."""
+    import torch.distributed as dist
+    from multivartv_tpu_torch.parallel import halo
+    from multivartv_tpu_torch.parallel.sharding import make_device_mesh
+
+    mesh = make_device_mesh(shape, ("dp", "sx", "sy"))
+    r, fold = dist.get_rank(), mesh.fold
+    sx = mesh.size
+    d, i = divmod(r, sx)
+    got = halo.gather_folds(torch.full((1, 2), float(r)), fold)
+    want = torch.tensor([[float(k * sx + i)] * 2 for k in range(fold.size)])
+    a, none, b = halo.broadcast_each((torch.full((3,), float(r)), None, torch.arange(4) + r),
+                                     fold)
+    groups = [mesh.peer(k) for k in range(sx)] == [d * sx + k for k in range(sx)] and \
+        [fold.peer(k) for k in range(fold.size)] == [k * sx + i for k in range(fold.size)]
+    return {"gather_folds": np.asarray(float((got - want).abs().max())),
+            "broadcast_each": np.asarray(max(float((a - i).abs().max()),
+                                             float((b - torch.arange(4) - i).abs().max()))),
+            "none kept": np.asarray(none is None and b.dtype == torch.int64),
+            "groups": np.asarray(groups and (mesh.rank, fold.rank, mesh.world.rank) == (i, d, r))}
+
+
+def _mvtv_parts(parts, fits):
+    """Fits on parts of the world, each part a world of its own: parts is a
+    list of rank lists, fits is {name: (k, _mvtv_mesh's kwargs)}, and the
+    ranks of part k run the fits of part k over their part's group, one
+    after another, while the other parts run theirs.  Every rank returns
+    every fit's {"name/key": array}, each from the first rank of its
+    part."""
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    groups = [dist.new_group(ranks) for ranks in parts]
+    k = next(i for i, ranks in enumerate(parts) if rank in ranks)
+    mine = {f"{name}/{key}": v
+            for name, (part, kw) in fits.items() if part == k
+            for key, v in _mvtv_mesh(group=groups[k], **kw).items()}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return {key: v for ranks in parts for key, v in every[ranks[0]].items()}
+
+
 def _whole_lattice_census(m, seed, n_lambda, folds, cfg, store, gates=None):
     """mvtv_sharded with a census as every ADMM solve (each fold's, the full
     path's, the refit's) starts, before its first iteration: the live torch
@@ -416,7 +528,10 @@ def _spectral_pieces(ms, seed):
     return {k: np.asarray(v) for k, v in err.items()}
 
 
-JOBS = {"sharded_admm": _sharded_admm, "spectral_pieces": _spectral_pieces, "mvtv_sharded": _mvtv_sharded, "pieces": _pieces,
+JOBS = {"sharded_admm": _sharded_admm, "spectral_pieces": _spectral_pieces,
+        "mvtv_sharded": _mvtv_sharded, "mvtv_mesh": _mvtv_mesh, "mvtv_parts": _mvtv_parts,
+        "fold_collectives": _fold_collectives,
+        "pieces": _pieces,
         "pieces_3d": _pieces_3d, "whole_lattice_census": _whole_lattice_census}
 
 
