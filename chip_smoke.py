@@ -585,7 +585,7 @@ def compare_kernels(name, device, errs):
 
     args = (I["theta"], I["u"], I["alpha"], I["counts"], I["oty"], hv, eigs, I["lam"], rho,
             us, I["cbar"], sc)
-    scratch = {}   # held across calls, as a solve holds it: the second run replays
+    scratch = {}   # held across calls, as a solve holds it: the second run reuses it
     out = K.admm_iters_2d(*args, k_iters=4, n_steps=3, true_m=true_m, scratch=scratch)
     ref = K.admm_iters_2d_reference(*args, k_iters=4, n_steps=3, true_m=true_m)
     torch.cuda.synchronize()
@@ -622,12 +622,13 @@ def compare_kernels(name, device, errs):
           f"admm_iters_2d {tag} K=4 cold start: (rho, u_scale) "
           f"{float(c_k[3]), float(c_k[4])} == {float(c_32[3]), float(c_32[4])}")
 
-    # No float atomics anywhere: a second run, the replay of the chain's
-    # captured graph on the same buffers, repeats bit for bit.
+    # No float atomics anywhere: a second run, the persistent launch again
+    # on the same buffers, repeats bit for bit.
     again = K.admm_iters_2d(*args, k_iters=4, n_steps=3, true_m=true_m, scratch=scratch)
     check(all(torch.equal(p, q) for p, q in zip((out[0], *out[1], *out[2], out[5]),
                                                 (again[0], *again[1], *again[2], again[5]))),
-          f"admm_iters_2d {tag} K=4: a second run (the graph's replay) is bit-identical")
+          f"admm_iters_2d {tag} K=4: a second run (the persistent launch again) is "
+          "bit-identical")
 
 
 def compare_b5(name, device, errs):
@@ -673,8 +674,8 @@ def compare_b5(name, device, errs):
           f"admm_iters_2d_batched {tag} K=4: stats within rtol 1e-2 of plain")
 
     # Row b of B5 is B4 on fold b, bit for bit: B4 is the B = 1 launch of
-    # the same stage kernels, whose per-problem work and summation order do
-    # not depend on B.
+    # the same persistent kernel, whose per-problem work items and summation
+    # order do not depend on B.
     same = True
     for b in range(folds):
         one = K.admm_iters_2d(I["theta"][b], tuple(w[b] for w in I["u"]),
@@ -2300,10 +2301,13 @@ def folded_products_cublas(ops, batch: int):
     return run
 
 
-# The chain's kernels (csrc/chain.cu, xupdate.cu, dct_fold.cu, reduce.cu) by
-# the share of a call they stand for.
+# The kernels of B3's chain (csrc/xupdate.cu, dct_fold.cu, reduce.cu) and of
+# B4/B5's persistent launch (csrc/chain.cu) by the share of a call they
+# stand for.
 def _chain_group(key: str) -> str:
     k = key.lower()
+    if "admm_chain_kernel" in k:
+        return "persistent chain (one launch)"
     if "fold_mma_kernel" in k:
         return "products"
     if "fold_in_kernel" in k or "pad_halves_kernel" in k:
@@ -2318,14 +2322,18 @@ def _chain_group(key: str) -> str:
     return "wrapper passes (eager)"
 
 
-def profile_chain(label: str, run, n_calls: int, iters: int, wall_ms: float, lib) -> None:
+def profile_chain(label: str, run, n_calls: int, iters: int, wall_ms: float, lib,
+                  barriers: int = 0) -> None:
     """torch.profiler over n_calls of run() (one B3, B4 or B5 call of
     `iters` ADMM iterations each, or 1 for B3): device ms per call by share
-    of the chain, launches per iteration, the device's idle share against
-    the CUDA-event time per call (wall_ms), and the products beside the
-    same products on cuBLAS (lib(), one call's worth): their device time
-    (torch.profiler) and their CUDA-event time, which adds PyTorch's host
-    time per call."""
+    of the chain, kernels per call and per iteration, grid barriers per
+    iteration (`barriers` a call: B4/B5's persistent launch), the device's
+    idle share against the CUDA-event time per call (wall_ms), and the
+    products beside the same products on cuBLAS (lib(), one call's worth):
+    their device time (torch.profiler) and their CUDA-event time, which
+    adds PyTorch's host time per call.  B4/B5's products run inside the
+    persistent kernel, which the profiler sees whole: their share is not
+    measured there."""
     lib_ms = cuda_time_ms(lib, 20)
     lib_dev = sum(us for us, _, _ in device_times(lib)) / 1e3
     groups, launches = {}, 0
@@ -2340,13 +2348,16 @@ def profile_chain(label: str, run, n_calls: int, iters: int, wall_ms: float, lib
         return
     parts = ", ".join(f"{g} {v:.4f}" for g, v in sorted(groups.items(), key=lambda kv: -kv[1]))
     prod = groups.get("products", 0.0)
-    lib_part = (f"device time {lib_dev:.4f} ms ({prod / lib_dev:.2f}x)" if lib_dev > 0
+    ratio = f" ({prod / lib_dev:.2f}x)" if prod > 0 and lib_dev > 0 else ""
+    lib_part = (f"device time {lib_dev:.4f} ms{ratio}" if lib_dev > 0
                 else "device time not measured (the profiler saw none)")
+    prod_part = (f"its products {prod:.4f} ms" if prod > 0 else
+                 "its products inside the persistent kernel (not measured apart)")
     log(f"  {label} profile, device ms per call: {parts}; busy {busy:.4f} of {wall_ms:.4f} ms "
-        f"wall, idle share {max(0.0, 1 - busy / wall_ms):.3f}; {launches / n_calls / iters:.1f} "
-        f"kernels per iteration; its products {prod:.4f} ms beside the same products as bf16 "
-        f"torch.bmm (cuBLAS, a yardstick): {lib_part}, CUDA-event time {lib_ms:.4f} ms "
-        f"[{GPU_LINE}]")
+        f"wall, idle share {max(0.0, 1 - busy / wall_ms):.3f}; {launches / n_calls:.1f} kernels "
+        f"per call, {launches / n_calls / iters:.1f} per iteration; {barriers / iters:.1f} grid "
+        f"barriers per iteration; {prod_part} beside the same products as bf16 torch.bmm "
+        f"(cuBLAS, a yardstick): {lib_part}, CUDA-event time {lib_ms:.4f} ms [{GPU_LINE}]")
 
 
 def phase_timing(device):
@@ -2397,7 +2408,8 @@ def phase_timing(device):
     for name, n_precond, iters in (("xupdate_pcg_2d_packed", 3, 1), ("admm_iters_2d", 12, 4)):
         lib = folded_products_cublas(ops, 1)
         profile_chain(f"{name} 512^2" + (" K=4" if iters > 1 else ""), cases[name][0], 5,
-                      iters, times[name][0], lambda: lib(n_precond))
+                      iters, times[name][0], lambda: lib(n_precond),
+                      K.chain_barriers(iters, 3) if iters > 1 else 0)
 
     problem, s0 = I["problem"], I["state0"]
     cfg = SolverConfig()
@@ -2465,7 +2477,7 @@ def phase_timing(device):
         f"{p1:.4f} / {p2:.4f} ms [{GPU_LINE}]")
     lib = folded_products_cublas(c_ops, folds)
     profile_chain(f"admm_iters_2d_batched 316^2 B={folds} K=4", b5_kernel, 5, 4,
-                  min(k1, k2), lambda: lib(12))
+                  min(k1, k2), lambda: lib(12), K.chain_barriers(4, 3))
     s0 = C["state0"]
 
     def batched_route():
@@ -3016,10 +3028,11 @@ SHARD_FIT2_LAMBDAS = 3
 # lambdas, against the single card's tie set as the 1024^2 fit, every solve
 # of both capped at SHARD_FIT3_CAP: its iteration is host-bound (~45 ms on
 # an H100, as at 2048^2), and uncapped lambda_max takes 748 iterations (the
-# fit 69 s; 59 s at a cap of 300).
+# fit 69 s; 59 s at a cap of 300, 26-32 s at 100).  Cap 50 keeps the
+# default run well inside its time.
 SHARD_FIT3 = ((512, 512), 1 << 20)
 SHARD_FIT3_LAMBDAS = 2
-SHARD_FIT3_CAP = 100
+SHARD_FIT3_CAP = 50
 # The folds = 2 fit's lattice as a tiled_inputs workload for the slab check.
 SHARD_HALF = (lambda: bench_data(1 << 20), (1024, 1024), 0.05)
 # compare_shard's cuts, each a tuple of slab row counts from the top: on
@@ -4428,13 +4441,15 @@ SHARD3 = ("dual_update_tiled_3d_shard", "gram_residual_tiled_3d_shard",
 # lasso (m = N, mesh = sorted x) at N = 2^20 (folds 1) and N = 1e5 (folds
 # 2), 5 lambdas each.  Every solve of a fit and of the fit it is compared
 # with stops at the same cap (SHARD3_CAP, SHARD1_CAP): uncapped the 256^3
-# path alone would take minutes.
+# path alone would take minutes.  At a cap of 1,000 the N = 1e5 fit and its
+# comparison took 51 s of the default run on an H100 (4 of 5 solves at the
+# cap); 500 halves that.
 SHARD3_FIT1, SHARD3_FIT2 = "256^3 n=2^22", "256x256x64 n=2^22"
 SHARD3_LAMBDAS = 3
 SHARD3_CAP = 60
 SHARD1_FITS = ((FUSED_ONE, 1), (100_000, 2))
 SHARD1_LAMBDAS = 5
-SHARD1_CAP = 1000
+SHARD1_CAP = 500
 # The plane cuts of phase 3's slab checks on PATH3 (256 x 256 x 64, axis 0
 # cut): np.array_split's three, one-plane slabs inside and at both edges,
 # and the one-rank slab (the main path's: halos zero, bit for bit against

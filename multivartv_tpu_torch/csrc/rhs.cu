@@ -43,18 +43,12 @@ residual_kernel(const float* __restrict__ b, const float* __restrict__ x,
   const size_t c = size_t(i) * L.m1 + j;
   scal += scal_offset(bt);
   const float rho = scal[S_RHO];
-  float bv;
-  if (MODE == B_GIVEN) {
-    bv = b[off + c];
-  } else {
-    bv = oty[coff + c] + rho * adjoint_at(a0 + off, a1 + off, a2 + off, u0 + off, u1 + off,
-                                          u2 + off, scal[S_USCALE], i, j, L, sc);
-  }
-  const float g_mix = rho * sc.mix * sc.mix;
-  const float g_ax1 = rho * sc.ax1 * sc.ax1;
-  const float g_ax0 = rho * sc.ax0 * sc.ax0;
-  const float ax = counts[coff + c] * x[off + c] + gram_at(x + off, i, j, L, g_mix, g_ax1, g_ax0);
-  out[off + c] = bv - ax;
+  if (MODE == B_GIVEN)
+    out[off + c] = b[off + c] - gram_apply_at(x + off, counts[coff + c], i, j, L, rho, sc);
+  else
+    out[off + c] = residual_formed_at(x + off, counts[coff + c], oty[coff + c], a0 + off,
+                                      a1 + off, a2 + off, u0 + off, u1 + off, u2 + off, rho,
+                                      scal[S_USCALE], i, j, L, sc);
 }
 
 int launch_residual(ResidualMode mode, const float* b, const float* x, const float* counts,

@@ -59,6 +59,14 @@ __device__ __forceinline__ float gram_at(const float* __restrict__ v, int i, int
                    L.m1, edge(im, L.m0), edge(i, L.m0), g_mix, g_ax1, g_ax0);
 }
 
+// (counts + rho D'D) x at (i, j) of a whole lattice, cnt the count there:
+// the CG's matvec and the A x of its residual (_gram_matvec_kernel).
+__device__ __forceinline__ float gram_apply_at(const float* __restrict__ x, float cnt, int i,
+                                               int j, Lat L, float rho, Scales sc) {
+  return cnt * x[size_t(i) * L.m1 + j] + gram_at(x, i, j, L, rho * sc.mix * sc.mix,
+                                                 rho * sc.ax1 * sc.ax1, rho * sc.ax0 * sc.ax0);
+}
+
 // The rows (this one and the one above) of one block of alpha and of u.
 struct BlockRows {
   const float *a, *a_up, *u, *u_up;
@@ -94,6 +102,18 @@ __device__ __forceinline__ float adjoint_at(const float* __restrict__ a0,
   return adjoint_rows(BlockRows{a0 + r, a0 + ru, u0 + r, u0 + ru},
                       BlockRows{a1 + r, a1 + ru, u1 + r, u1 + ru},
                       BlockRows{a2 + r, a2 + ru, u2 + r, u2 + ru}, us, 1.f, j, L.m1, sc);
+}
+
+// r = b - A x at (i, j) with b = oty + rho D'(alpha + us u) formed in
+// registers (B2's b, never stored): _admm_chain's r0.  Pointers at the
+// problem's lattices; oty_c and cnt the values at (i, j).
+__device__ __forceinline__ float residual_formed_at(
+    const float* __restrict__ x, float cnt, float oty_c, const float* __restrict__ a0,
+    const float* __restrict__ a1, const float* __restrict__ a2, const float* __restrict__ u0,
+    const float* __restrict__ u1, const float* __restrict__ u2, float rho, float us, int i, int j,
+    Lat L, Scales sc) {
+  const float bv = oty_c + rho * adjoint_at(a0, a1, a2, u0, u1, u2, us, i, j, L, sc);
+  return bv - gram_apply_at(x, cnt, i, j, L, rho, sc);
 }
 
 }  // namespace mvtv

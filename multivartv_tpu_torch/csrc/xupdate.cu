@@ -2,8 +2,10 @@
 // preconditioned by the folded bf16 DCT solve of (cbar I + rho D'D).
 //
 // Replaces multivartv_tpu/ops/pallas_kernels.py:_xupdate_kernel_packed
-// (xupdate_pcg_2d_packed, B3) and the x-update half of _admm_chain (B4);
-// with the dense bf16 DCT matrices in place of the folded halves,
+// (xupdate_pcg_2d_packed, B3; _admm_chain's x-update, B4 and B5, is the
+// same arithmetic in chain.cu's persistent kernel, from the device code of
+// stencil.cuh and fold.cuh that these stage kernels also call); with
+// the dense bf16 DCT matrices in place of the folded halves,
 // _xupdate_kernel (xupdate_pcg_2d, B6: lattices with an odd axis).  Its
 // matvec stage computes _gram_matvec_kernel's function (B7, the fused-dot
 // PCG's matvec, whose own one-launch kernel is in tiled.cu).
@@ -55,11 +57,8 @@ gram_matvec_dot_kernel(const float* __restrict__ p, const float* __restrict__ co
   const int i = blockIdx.y * TY + threadIdx.y;
   float d = 0.f;
   if (i < L.m0 && j < L.m1) {
-    const float rho = scal[scal_offset(bt) + S_RHO];
     const size_t c = size_t(i) * L.m1 + j;
-    const float v = counts[c] * p[c] +
-                    gram_at(p, i, j, L, rho * sc.mix * sc.mix, rho * sc.ax1 * sc.ax1,
-                            rho * sc.ax0 * sc.ax0);
+    const float v = gram_apply_at(p, counts[c], i, j, L, scal[scal_offset(bt) + S_RHO], sc);
     ap[c] = v;
     d = p[c] * v;
   }
@@ -156,7 +155,7 @@ int run_pcg(const float* x_src, float* x_dst, const float* counts, Transforms tf
   return launch_finish(partials, nb, 1, scal + S_STATS + 5, bt, s);
 }
 
-// The floats of work for B = 1 (B3) or a batch (the chain, chain.cu):
+// The floats of work for B = 1 (B3) or a batch (B4, B5: chain.cu):
 // `lattices` float lattices per problem, then 4 floats of slack to align
 // the tensor-core products' padded bf16 operands (dct_fold.cu) to 16 bytes.
 long long folded_work(int lattices, int B, int m0, int m1) {

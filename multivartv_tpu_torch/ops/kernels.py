@@ -31,10 +31,14 @@ the three row-slab kernels of the sharded route:
   xupdate_tridiag               none: XLA in JAX, solver/tridiag.py:208 (T1) tridiag.cu
   ============================  ===========================================  =======================
 
-B4 is the B = 1 case of B5's launcher: one chain of stage kernels, each
-with a batch coordinate, serves both.  B3-B5's folded DCT products run on
-the tensor cores from padded bf16 operands, the spectral scale fused into
-the forward transform (csrc/dct_fold.cu).  B6 is B3's chain with the dense
+B4 is the B = 1 case of B5's launcher: one persistent cooperative launch
+runs K whole iterations of B problems, each stage a grid-stride loop over
+the items of every problem with a grid barrier after it
+(csrc/chain.cu; ``chain_plan`` sizes its grid and lays out its partial
+sums).  B3-B5's folded DCT products run on the tensor cores from padded
+bf16 operands, the spectral scale fused into the forward transform
+(csrc/fold.cuh: B3's stage kernels in csrc/dct_fold.cu and B4/B5's
+kernel share one tile function).  B6 is B3's chain with the dense
 bf16 DCT matrices (any axes), its products on the tensor cores; B7 is B10's
 row march (on 16-byte aligned rows) in a mode that also sums <v, A v>, its
 last CTA adding the partials, one launch.  B8 is B1's stage kernel with two
@@ -680,7 +684,8 @@ _ARGTYPES = {
     "mvtv_dual_update_2d": [_P] * 6 + [_F] * 3 + [_I, _I] + [_P] * 5 + [_I, _I, _P],
     "mvtv_xupdate_pcg_2d_packed": [_P] * 10 + [_F] * 3 + [_I] + [_P] * 4 + [_I, _I, _P],
     "mvtv_admm_iters_2d_batched": ([_P] * 9 + [_LL] + [_P] * 10 + [_F] * 3 + [_I, _I]
-                                   + [_F] * 3 + [_I] * 3 + [_P] * 4 + [_I] * 3 + [_P]),
+                                   + [_F] * 3 + [_I] * 3 + [_P] * 4 + [_I] * 3 + [_P, _P]),
+    "mvtv_admm_iters_2d_batched_occupancy": [_P, _P],
     "mvtv_xupdate_pcg_2d": [_P] * 8 + [_F] * 3 + [_I] + [_P] * 4 + [_I, _I, _P],
     "mvtv_xupdate_pcg_2d_work": [_I, _I],
     "mvtv_xupdate_pcg_2d_packed_work": [_I, _I],
@@ -964,27 +969,124 @@ def _check_vectors(n: int, *vectors):
                              f"{v.dtype} {tuple(v.shape)}")
 
 
+# csrc/chain.cu's Plan, in its order: how the persistent kernel cuts B
+# problems into work items and where each problem's partial sums go.
+CHAIN_PLAN = ("grid", "quad_cols", "quad_items", "dual_cols", "dual_steps", "dual_items",
+              "fold_n", "fold_mh", "fold_m", "pstride", "p_rz", "p_pap", "p_rr", "p_dual")
+_DUAL_STEPS = 8   # tiles a strip of the chain's dual stage
+_FOLD_TILE = 32   # csrc/fold.cuh, kFM = kFN
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def chain_plan(batch: int, m0: int, m1: int, per_sm: int, sms: int) -> dict:
+    """The persistent chain's work items and partial slots for B problems on
+    an (m0, m1) lattice (even axes), and its grid from the occupancy of its
+    kernel (per_sm CTAs resident on each of sms SMs: csrc/chain.cu,
+    ``mvtv_admm_iters_2d_batched_occupancy``).
+
+    Items a problem: ``quad_items`` 32 x 8 tiles of the top left quadrant
+    (the residual, the matvec and the CG updates: each thread at the four
+    mirror points of its knot), ``dual_items`` column strips of
+    ``dual_steps`` 32 x 8 tiles (the dual stage: B1's march, up to 8 tiles
+    a strip, as many as the lattice has tile rows), and the products' 32 x
+    32 tiles (``fold_n`` N-tiles by ``fold_mh`` or ``fold_m`` M-tiles).
+    Problem b's partials are the ``pstride`` floats from b * pstride: <r,
+    z> one per forward column-product tile (p_rz), <p, Ap> and |r|^2 one
+    per quadrant item (p_pap, p_rr), the dual stage's five sums per strip
+    (p_dual).  Every count and offset comes from the lattice alone, so
+    problem b's slots, and the order of its sums (each in slot order), are
+    the same in a batch of any size, and no value depends on the grid.
+    The grid is every resident CTA, one an SM where the work is small, or
+    fewer where no stage has that many items; the kernel refuses a grid
+    that cannot be resident, and so does this."""
+    if per_sm < 1 or sms < 1:
+        raise RuntimeError(f"the chain's kernel cannot be resident ({per_sm} CTAs per SM on "
+                           f"{sms} SMs)")
+    h0, h1 = m0 // 2, m1 // 2
+    rows = _cdiv(m0, 8)
+    plan = dict(quad_cols=_cdiv(h1, 32), dual_cols=_cdiv(m1, 32),
+                dual_steps=min(_DUAL_STEPS, rows), fold_n=_cdiv(h1, _FOLD_TILE),
+                fold_mh=_cdiv(h0, _FOLD_TILE), fold_m=_cdiv(m0, _FOLD_TILE))
+    plan["quad_items"] = plan["quad_cols"] * _cdiv(h0, 8)
+    plan["dual_items"] = plan["dual_cols"] * _cdiv(rows, plan["dual_steps"])
+    plan["p_rz"] = 0
+    plan["p_pap"] = plan["fold_m"] * plan["fold_n"]
+    plan["p_rr"] = plan["p_pap"] + plan["quad_items"]
+    plan["p_dual"] = plan["p_rr"] + plan["quad_items"]
+    plan["pstride"] = plan["p_dual"] + 5 * plan["dual_items"]
+    most = max(plan["quad_items"], plan["dual_items"], 2 * plan["fold_mh"] * plan["fold_n"],
+               plan["fold_m"] * plan["fold_n"])
+    # One CTA an SM while the quadrant items fit twice over them: a grid
+    # barrier of fewer CTAs beats the stages' idle second CTAs (on an H100
+    # at 512^2, B = 1; not at 316^2, B = 5, or at 1024^2).
+    per = 1 if batch * plan["quad_items"] <= 2 * sms else per_sm
+    plan["grid"] = min(per * sms, batch * most)
+    return plan
+
+
+def chain_work_floats(batch: int, m0: int, m1: int) -> int:
+    """Floats of the chain's work buffer (csrc/xupdate.cu, folded_work(6,
+    ...)): 6 (B, m0, m1) lattices (u's scratch copy, r, p, Ap), 4 floats of
+    slack for 16-byte alignment, then the products' padded bf16 operands
+    (csrc/dct_fold.cu, folded_scratch_bytes: 4 blocks of m0 x ld1 a
+    problem and the four padded halves, rows padded to 8 bf16)."""
+    ld0, ld1 = _cdiv(m0 // 2, 8) * 8, _cdiv(m1 // 2, 8) * 8
+    bf16_bytes = 2 * (batch * 4 * m0 * ld1 + m0 * ld0 + m1 * ld1)
+    return 6 * batch * m0 * m1 + 4 + (bf16_bytes + 3) // 4
+
+
+def chain_barriers(k_iters: int, n_steps: int) -> int:
+    """Grid barriers of one chain call: the set-up's, then an iteration's
+    residual, 4 a preconditioner apply (n_steps of them), the matvec and
+    update of each CG step, and the dual stage (none after the last)."""
+    return k_iters * (2 + 6 * n_steps)
+
+
+_OCCUPANCY = {}
+
+
+def _chain_occupancy(dev) -> Tuple[int, int]:
+    """(CTAs of the chain's kernel resident per SM, SMs) on ``dev``; raises
+    where the card has no cooperative launch."""
+    if dev.index not in _OCCUPANCY:
+        per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            err = _lib().mvtv_admm_iters_2d_batched_occupancy(ctypes.byref(per_sm),
+                                                              ctypes.byref(sms))
+        _raise_on(err, "admm_iters_2d_batched (occupancy)")
+        _OCCUPANCY[dev.index] = (per_sm.value, sms.value)
+    return _OCCUPANCY[dev.index]
+
+
 def _chain_buffers(scratch: Optional[dict], dev, batch: int, m0: int, m1: int,
                    n_steps: int) -> dict:
     """The chain's buffers for (device, B, m0, m1, n_steps): work, partials,
-    the dual stage's tickets (zeroed here, left 0 by every launch),
-    scalars, the per-problem scalar inputs, the activity mask and B4's
-    stacked state.  chain.cu replays its captured graph only for repeated
-    addresses, so a solve keeps one scratch dict across its chunk calls and
-    the buffers live in it (and die with it); scratch None allocates them
-    for this call alone."""
+    the dual stage's tickets and the grid barrier's two counters (zeroed
+    here, left 0 by every launch), scalars, the per-problem scalar inputs,
+    the activity mask, B4's stacked state and the plan (chain_plan, as
+    csrc/chain.cu's Plan).  A solve keeps one scratch dict across its
+    chunk calls, so they allocate once; scratch None allocates them for
+    this call alone."""
     key = (dev, batch, m0, m1, n_steps)
     if scratch is not None and scratch.get("key") == key:
         return scratch
+    lib = _lib()
+    work = chain_work_floats(batch, m0, m1)
+    if lib.mvtv_admm_iters_2d_batched_work(batch, m0, m1) != work:
+        raise RuntimeError("chain_work_floats disagrees with csrc/chain.cu's work size")
+    plan = chain_plan(batch, m0, m1, *_chain_occupancy(dev))
     f32 = dict(dtype=torch.float32, device=dev)
-    bufs = dict(key=key,
-                work=torch.empty(_lib().mvtv_admm_iters_2d_batched_work(batch, m0, m1), **f32),
+    bufs = dict(key=key, work=torch.empty(work, **f32),
                 scal=_scal_buffer(n_steps, dev, batch).reshape(batch, -1),
-                partials=_partials((m0, m1), 5, dev, batch),
-                tickets=torch.zeros(batch, dtype=torch.int32, device=dev),
+                partials=torch.empty(batch * plan["pstride"], **f32),
+                tickets=torch.zeros(batch + 2, dtype=torch.int32, device=dev),
                 inp=torch.empty((4, batch), **f32),
                 act=torch.empty(batch, dtype=torch.int32, device=dev),
-                state=torch.empty((7, batch, m0, m1), **f32) if batch == 1 else None)
+                state=torch.empty((7, batch, m0, m1), **f32) if batch == 1 else None,
+                plan=(ctypes.c_int * len(CHAIN_PLAN))(*(plan[k] for k in CHAIN_PLAN)))
     if scratch is None:
         return bufs
     scratch.clear()
@@ -1017,7 +1119,7 @@ def _launch_chain(theta, u, alpha, counts, oty, halves_lp, eigs_packed, lams, rh
         *(v.data_ptr() for v in inp), None if act is None else act.data_ptr(), *scales, k_iters,
         n_steps, tau, band, tau if tau_shrink is None else tau_shrink, int(adapt), t0, t1,
         bufs["work"].data_ptr(), bufs["partials"].data_ptr(), bufs["tickets"].data_ptr(),
-        scal.data_ptr(), batch, m0, m1, _stream(dev))
+        scal.data_ptr(), batch, m0, m1, ctypes.addressof(bufs["plan"]), _stream(dev))
     scal = scal.clone()
     return err, scal[:, S_RHO], scal[:, S_USCALE], scal[:, S_STATS:S_STATS + 6]
 
